@@ -1,0 +1,88 @@
+"""urh_tpu_torch stands alone: no JAX, no urh_tpu, and the card by default."""
+
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import urh_tpu_torch
+from urh_tpu_torch.core.signal import Signal
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# matches "import jax", "from jax.x import", "import urh_tpu", "from urh_tpu.x"
+# but not urh_tpu_torch
+FORBIDDEN_IMPORT = re.compile(r"^\s*(?:import|from)\s+(?:jax|urh_tpu)\b", re.M)
+
+DEMOD_WITHOUT_JAX = r"""
+import sys
+sys.modules["jax"] = None  # any import of jax now fails
+import numpy as np
+import urh_tpu_torch as ut
+
+bits = np.array([1, 0, 1, 1, 0, 0, 1, 0] * 4)
+phase = np.cumsum(np.repeat(np.where(bits == 1, 0.12, -0.12), 100))
+iq = np.zeros((len(phase) + 2000, 2), np.float32)
+iq[1000:1000 + len(phase), 0] = np.cos(phase)
+iq[1000:1000 + len(phase), 1] = np.sin(phase)
+params = ut.DemodParams(modulation="FSK", noise_threshold=0.1)
+messages = ut.demodulate(iq, params, device="cpu")
+assert [m.plain_bits_str for m in messages] == ["".join(map(str, bits))], messages
+loaded = [m for m in sys.modules if m == "urh_tpu" or m.startswith("urh_tpu.")]
+assert not loaded, loaded
+print("ok")
+"""
+
+
+def test_demodulates_with_jax_unimportable_and_loads_no_urh_tpu():
+    out = subprocess.run([sys.executable, "-c", DEMOD_WITHOUT_JAX], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def _port_sources():
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "urh_tpu_torch")):
+        for name in files:
+            if name.endswith(".py"):
+                yield os.path.join(dirpath, name)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_sources_import_neither_jax_nor_urh_tpu():
+    offenders = []
+    for path in _port_sources():
+        with open(path) as f:
+            offenders += [f"{path}: {m.group(0).strip()}"
+                          for m in FORBIDDEN_IMPORT.finditer(f.read())]
+    assert not offenders
+    assert FORBIDDEN_IMPORT.search("from urh_tpu.core import x")
+    assert FORBIDDEN_IMPORT.search("  import jax.numpy as jnp")
+    assert not FORBIDDEN_IMPORT.search("from urh_tpu_torch.core import x")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    iq = np.zeros((1000, 2), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        urh_tpu_torch.demodulate(iq)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Signal()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Signal.from_iq(iq)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        urh_tpu_torch.afp_demod(iq, 0.1, "FSK")
+    # an explicit device is honoured
+    assert Signal.from_iq(iq, device="cpu").device == torch.device("cpu")
+
+
+def test_demodulate_rejects_a_device_other_than_the_signals():
+    sig = Signal.from_iq(np.zeros((1000, 2), np.float32), device="cpu")
+    with pytest.raises(ValueError):
+        urh_tpu_torch.demodulate(sig, device="cuda:0")

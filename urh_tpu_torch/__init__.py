@@ -1,0 +1,33 @@
+"""urh_tpu_torch — the PyTorch/CUDA port of urh_tpu for NVIDIA Hopper.
+
+Offline demodulation (raw IQ -> noise gate and ASK/FSK demodulation ->
+symbol states -> pulse runs -> bits -> Messages) runs on a CUDA card, with
+the fused demod kernels written by hand in CUDA C++ (``csrc/``).  Entry
+points run on the card unless the caller passes ``device="cpu"``, where
+every kernel's plain PyTorch version runs instead.  Imports neither JAX
+nor urh_tpu.
+
+Quick start::
+
+    import urh_tpu_torch as ut
+
+    sig = ut.Signal.from_file("capture.complex")
+    sig.modulation_type = "FSK"
+    messages = ut.demodulate(sig)              # -> list of bit messages
+"""
+
+from urh_tpu_torch.core.iq import IQData
+from urh_tpu_torch.core.signal import Signal
+from urh_tpu_torch.dsp.demod import DemodParams, afp_demod
+from urh_tpu_torch.protocol.analyzer import ProtocolAnalyzer, demodulate
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "IQData",
+    "Signal",
+    "DemodParams",
+    "afp_demod",
+    "ProtocolAnalyzer",
+    "demodulate",
+]

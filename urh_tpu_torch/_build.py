@@ -1,0 +1,89 @@
+"""Build of the CUDA kernels with nvcc, loaded through ctypes.
+
+The sources under ``csrc/`` have a plain C interface (no PyTorch headers),
+so one nvcc call builds them in seconds.  The library lands in
+``build/urh_tpu_torch/`` beside the package, named by a hash of the
+sources and flags, and is built at first use in each checkout.  Nothing
+here runs at import time: the CPU tests import every module on a machine
+without nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import time
+
+from urh_tpu_torch.util.logging import logger
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+_SRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "urh_tpu_torch")
+_SOURCES = ["fused_demod.cu", "fused_demod.cuh"]
+
+# numerics-relevant flags are part of the cache key.  No --use_fast_math:
+# K3/K4 parity needs the IEEE sqrtf and division; -fmad=false keeps every
+# product rounded as the separate PyTorch ops round it.
+FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+_C_FLOAT, _C_INT, _C_INT64, _PTR = (ctypes.c_float, ctypes.c_int,
+                                    ctypes.c_int64, ctypes.c_void_p)
+# launcher name -> argtypes (pointers and the stream as c_void_p)
+_SIGNATURES = {
+    "urh_fsk_f32": [_PTR, _C_INT64, _C_FLOAT, _C_FLOAT, _PTR, _PTR, _PTR],
+    "urh_fsk_i8": [_PTR, _C_INT64, _C_FLOAT, _C_FLOAT, _C_INT, _PTR, _PTR],
+    "urh_ask_f32": [_PTR, _C_INT64, _C_FLOAT, _C_FLOAT, _C_FLOAT, _PTR, _PTR, _PTR],
+    "urh_ask_i8": [_PTR, _C_INT64, _C_FLOAT, _C_FLOAT, _C_FLOAT, _PTR, _PTR],
+}
+
+_lib = None
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found: nvcc is needed to build "
+                           "the urh_tpu_torch kernels")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for name in _SOURCES:
+        with open(os.path.join(_SRC_DIR, name), "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def build() -> str:
+    """Compile the kernel library if this checkout has not yet; -> .so path."""
+    path = os.path.join(BUILD_DIR, f"libfused_demod_{_source_hash()}.so")
+    if os.path.isfile(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path[:-3]}.{os.getpid()}.tmp.so"
+    t0 = time.perf_counter()
+    subprocess.run([_nvcc(), *FLAGS, "-o", tmp,
+                    os.path.join(_SRC_DIR, "fused_demod.cu")],
+                   check=True, timeout=600)
+    os.replace(tmp, path)  # atomic: concurrent builders never load a partial file
+    logger.info("built %s in %.1f s", os.path.basename(path),
+                time.perf_counter() - t0)
+    return path
+
+
+def library() -> ctypes.CDLL:
+    """ctypes handle to the kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
