@@ -5,10 +5,15 @@
 
 1. Build the CUDA kernels from ``urh_tpu_torch/csrc`` and identify the card.
 2. Kernels: each of the four fused demod kernels against its plain PyTorch
-   version on the same CUDA tensors at N = 1000, 2^24 and 2^24 + 17 (qad
-   max-abs error <= 1e-6, 0 state mismatches); the int8 kernels against
-   the float32 ones on the same capture; each kernel and plain version
-   timed at 2^24 with CUDA events beside the kernel's memory bound.
+   version on the same CUDA tensors at N = 1, 2, 15, 16, 17 (around the
+   int8 kernels' 16 samples per thread), 1000, 1029 (a ragged tail on
+   lane 0 of a warp), 2^24 and 2^24 + 17 (qad max-abs error <= 1e-6, 0
+   state mismatches); the int8 kernels against the float32 ones on the
+   same capture, on a view 2 bytes past an aligned allocation (which
+   their wrappers copy first), and K4 over all 65,536 int8 (I, Q) pairs
+   for a grid of thresholds and max_mag; each kernel and plain version
+   timed at 2^24 with CUDA events beside the kernel's memory bound, and
+   the int8 kernels also at 2^26 beside a copy of the same traffic.
 3. Main path: ``urh_tpu_torch.demodulate`` on the default device for
    2^24-sample FSK and ASK captures (about 8.4 s of a 2 Msps receiver,
    367 messages of 256 random bits each), as float32 and as int8; every
@@ -32,7 +37,9 @@ import numpy as np
 import torch
 
 N_FULL = 1 << 24
-KERNEL_SIZES = (1000, N_FULL, N_FULL + 17)
+N_STREAM = 1 << 26  # the int8 kernels timed here too: launch and ramp-up
+                    # weigh less, the streaming rate more
+KERNEL_SIZES = (1, 2, 15, 16, 17, 1000, 1029, N_FULL, N_FULL + 17)
 QAD_ATOL = 1e-6
 TIMED_RUNS = 25
 
@@ -128,15 +135,14 @@ def kernel_phase(device, sizes=KERNEL_SIZES, timed_n=N_FULL) -> dict:
     for n in sizes:
         xf = torch.from_numpy(f32_all[:n]).to(device)
         xi = torch.from_numpy(i8_all[:n]).to(device)
+        i8 = i8_calls(xi, nsq["i8"])
         calls = {
             "fsk_f32": (fk.fused_fsk_demod_symbolize, fk.fused_fsk_demod_symbolize_plain,
                         (xf, nsq["f32"], F32_FSK["thr"])),
-            "fsk_i8": (fk.fused_fsk_symbolize_i8, fk.fused_fsk_symbolize_i8_plain,
-                       (xi, nsq["i8"], I8_FSK["thr"])),
+            "fsk_i8": i8["fsk_i8"],
             "ask_f32": (fk.fused_ask_demod_symbolize, fk.fused_ask_demod_symbolize_plain,
                         (xf, nsq["f32"], F32_ASK["thr"], F32_ASK["max_mag"])),
-            "ask_i8": (fk.fused_ask_symbolize_i8, fk.fused_ask_symbolize_i8_plain,
-                       (xi, nsq["i8"], I8_ASK["thr"], I8_ASK["max_mag"])),
+            "ask_i8": i8["ask_i8"],
         }
         for key, (kernel, plain, args) in calls.items():
             got = kernel(*args)
@@ -160,12 +166,94 @@ def kernel_phase(device, sizes=KERNEL_SIZES, timed_n=N_FULL) -> dict:
               flush=True)
         if k2_vs_k1 or k4_vs_k3:
             raise AssertionError(f"int8 kernels disagree with float32 ones at n={n}")
+        if n == max(sizes):
+            for key, bad in unaligned_check(xi, nsq["i8"]).items():
+                mismatch[key] += bad
+    for key, bad in ask_i8_all_pairs_check(device).items():
+        mismatch[key] += bad
     for key in KERNELS:
         limit = QAD_ATOL if key.endswith("f32") else 0.0
         if mismatch[key] or err[key] > limit:
             raise AssertionError(f"{key}: max_abs_err {err[key]}, "
                                  f"{mismatch[key]} state mismatches")
     return {"err": err, "mismatch": mismatch, "timings": timings}
+
+
+def i8_calls(x, noise_sqrd):
+    """int8 kernel key -> (kernel, plain version, arguments) on capture x."""
+    from urh_tpu_torch.dsp import fused_kernels as fk
+
+    return {
+        "fsk_i8": (fk.fused_fsk_symbolize_i8, fk.fused_fsk_symbolize_i8_plain,
+                   (x, noise_sqrd, I8_FSK["thr"])),
+        "ask_i8": (fk.fused_ask_symbolize_i8, fk.fused_ask_symbolize_i8_plain,
+                   (x, noise_sqrd, I8_ASK["thr"], I8_ASK["max_mag"])),
+    }
+
+
+def unaligned_check(xi, noise_sqrd) -> dict:
+    """The int8 kernels on a view 2 bytes past an aligned allocation: each
+    wrapper copies it (counted) and still launches; -> state mismatches
+    against the plain versions on the view."""
+    from urh_tpu_torch.dsp import fused_kernels as fk
+
+    buf = torch.empty((len(xi) + 1, 2), dtype=torch.int8, device=xi.device)
+    view = buf[1:]
+    view.copy_(xi)
+    copies, launches = dict(fk.ALIGNMENT_COPIES), dict(fk.LAUNCHES)
+    mismatch = {}
+    for key, (kernel, plain, args) in i8_calls(view, noise_sqrd).items():
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        mismatch[key] = compare(got, plain(*args))[1]
+        if view.is_cuda and (fk.ALIGNMENT_COPIES[key] != copies[key] + 1
+                             or fk.LAUNCHES[key] != launches[key] + 1):
+            raise AssertionError(f"{key}: an unaligned view was not copied and launched")
+    print(f"kernels on a view at byte offset {view.data_ptr() % 16}, n={len(view)}: "
+          f"state mismatches {mismatch}, alignment copies {fk.ALIGNMENT_COPIES}",
+          flush=True)
+    return mismatch
+
+
+def ask_i8_all_pairs_check(device) -> dict:
+    """K4 against its plain version over every int8 (I, Q) pair (after a
+    copy of the first, since sample 0 is -1), for a grid of noise levels,
+    thresholds and max_mag (0: the envelope is inf; < 0: a step down)."""
+    from urh_tpu_torch.dsp import fused_kernels as fk
+
+    v = torch.arange(-128, 128, dtype=torch.int8)
+    pairs = torch.stack(torch.meshgrid(v, v, indexing="ij"), -1).reshape(-1, 2)
+    x = torch.cat((pairs[:1], pairs)).to(device)
+    bad = cases = 0
+    for noise_sqrd in (0.0, 1.0, 100.0):
+        for max_mag in (I8_ASK["max_mag"], 1.0, 0.0, -1.0):
+            for thr in (-0.3, 0.0, 0.3, 0.9999, 1.0, 1.5):
+                got = fk.fused_ask_symbolize_i8(x, noise_sqrd, thr, max_mag)
+                torch.cuda.synchronize()
+                bad += compare(got, fk.fused_ask_symbolize_i8_plain(
+                    x, noise_sqrd, thr, max_mag))[1]
+                cases += 1
+    print(f"ask_i8 over all 65536 int8 pairs, {cases} parameter sets: "
+          f"{bad} state mismatches", flush=True)
+    return {"ask_i8": bad}
+
+
+def stream_phase(device):
+    """The int8 kernels and a copy of their traffic (x[:, 0].clone() reads
+    2 B and writes 1 B per sample) timed at N_FULL and N_STREAM."""
+    _, i8 = kernel_inputs(N_FULL, seed=3)
+    noise_sqrd = float(np.float32(I8_FSK["noise"] ** 2))
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=device)
+    x_full = torch.from_numpy(i8).to(device)
+    for n, x in ((N_FULL, x_full), (N_STREAM, x_full.repeat(N_STREAM // N_FULL, 1))):
+        bound = KERNELS["fsk_i8"]["bytes_per_sample"] * n / HBM_BYTES_PER_S * 1e3
+        calls = {key: (lambda f=kernel, a=args: f(*a))
+                 for key, (kernel, _, args) in i8_calls(x, noise_sqrd).items()}
+        calls["copy"] = lambda x=x: x[:, 0].clone()
+        ms = {key: time_ms(fn, flush) for key, fn in calls.items()}
+        print(f"stream n={n}: " + ", ".join(
+            f"{key} {t} ms ({bound / t:.1%} of the {bound} ms bound)"
+            for key, t in ms.items()), flush=True)
 
 
 def make_capture(kind: str, n: int, seed: int, sps: int = 100, n_bits: int = 256,
@@ -236,8 +324,9 @@ def main_path_phase(device, n: int):
         runs.append((kind, "float32", iq, bits, "fsk_f32" if kind == "FSK" else "ask_f32"))
         runs.append((kind, "int8", to_int8(iq), bits, "fsk_i8" if kind == "FSK" else "ask_i8"))
 
-    for key in fk.LAUNCHES:
-        fk.LAUNCHES[key] = 0
+    for counts in (fk.LAUNCHES, fk.ALIGNMENT_COPIES):
+        for key in counts:
+            counts[key] = 0
     walls = {}
     for kind, dtype, iq, bits, key in runs:
         before = fk.LAUNCHES[key]
@@ -256,6 +345,11 @@ def main_path_phase(device, n: int):
     missing = [k for k in KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
+    # the staged captures are fresh allocations: no int8 kernel input copied
+    if any(fk.ALIGNMENT_COPIES.values()):
+        raise AssertionError(f"main path copied unaligned captures: {fk.ALIGNMENT_COPIES}")
+    print(f"main path launches {launches}, alignment copies {fk.ALIGNMENT_COPIES}",
+          flush=True)
     return launches, walls
 
 
@@ -287,6 +381,7 @@ def main():
     identity = card_identity()
 
     kernels = kernel_phase("cuda")
+    stream_phase("cuda")
     launches, _ = main_path_phase(None, N_FULL)  # None: the default device
     card_vs_cpu_phase()
 

@@ -95,6 +95,49 @@ def test_ask_i8_matches_pallas_and_reference(n):
                                   _reference(samples, 10.0, "ASK", 0.3)[1])
 
 
+def _all_pairs_i8():
+    """Every int8 (I, Q) pair once, after a copy of the first (sample 0 is
+    forced to -1)."""
+    v = np.arange(-128, 128, dtype=np.int8)
+    pairs = np.stack(np.meshgrid(v, v, indexing="ij"), -1).reshape(-1, 2)
+    return np.concatenate((pairs[:1], pairs))
+
+
+def _ask_i8_by_decision(samples, noise_mag, threshold, max_mag):
+    """K4's integer evaluation in torch: the wrapper's decision integers
+    applied to I^2 + Q^2, as the CUDA kernel applies them."""
+    gate_below, cutoff, above = fk.ask_i8_decision(fk._noise_sqrd(noise_mag), threshold,
+                                                   max_mag)
+    x = torch.from_numpy(samples).to(torch.int32)
+    mag2 = x[:, 0] * x[:, 0] + x[:, 1] * x[:, 1]
+    states = torch.where(mag2 >= cutoff, above, 1 - above)
+    states = states.masked_fill(mag2 < gate_below, -1).to(torch.int8)
+    states[:1] = -1
+    return states
+
+
+@pytest.mark.parametrize("threshold", [-0.3, 0.0, 0.3, 0.9999, 1.0, 1.5])
+@pytest.mark.parametrize("max_mag", [MAX_I8, 1.0, 0.0, -1.0])
+@pytest.mark.parametrize("noise_mag", [0.0, 10.0])
+def test_ask_i8_decision_matches_pallas_over_all_pairs(noise_mag, max_mag, threshold):
+    samples = _all_pairs_i8()
+    states = _ask_i8_by_decision(samples, noise_mag, threshold, max_mag)
+    np.testing.assert_array_equal(
+        states.numpy(),
+        pk.ask_symbolize_i8(samples, noise_mag, threshold, max_mag, interpret=True))
+
+
+def test_int8_wrappers_copy_an_unaligned_view():
+    buf = torch.from_numpy(_i8_capture(1001, 6)).clone()  # torch aligns to 64 B
+    view = buf[1:]  # 2 bytes past a 16-byte aligned allocation
+    assert buf.data_ptr() % 16 == 0 and view.data_ptr() % 16 == 2
+    before = dict(fk.ALIGNMENT_COPIES)
+    assert fk._aligned("ask_i8", buf) is buf
+    copy = fk._aligned("ask_i8", view)
+    assert copy.data_ptr() % 16 == 0 and torch.equal(copy, view)
+    assert fk.ALIGNMENT_COPIES == {**before, "ask_i8": before["ask_i8"] + 1}
+
+
 @pytest.mark.parametrize("threshold", [math.pi / 2, -2.0])
 def test_fsk_i8_rejects_wide_threshold_in_both_packages(threshold):
     samples = _i8_capture(1000, 1)

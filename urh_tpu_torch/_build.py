@@ -24,7 +24,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "urh_tpu_torch")
 _SOURCES = ["fused_demod.cu", "fused_demod.cuh"]
 
 # numerics-relevant flags are part of the cache key.  No --use_fast_math:
-# K3/K4 parity needs the IEEE sqrtf and division; -fmad=false keeps every
+# K3 parity needs the IEEE sqrtf and division; -fmad=false keeps every
 # product rounded as the separate PyTorch ops round it.
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
@@ -36,7 +36,7 @@ _SIGNATURES = {
     "urh_fsk_f32": [_PTR, _C_INT64, _C_FLOAT, _C_FLOAT, _PTR, _PTR, _PTR],
     "urh_fsk_i8": [_PTR, _C_INT64, _C_FLOAT, _C_FLOAT, _C_INT, _PTR, _PTR],
     "urh_ask_f32": [_PTR, _C_INT64, _C_FLOAT, _C_FLOAT, _C_FLOAT, _PTR, _PTR, _PTR],
-    "urh_ask_i8": [_PTR, _C_INT64, _C_FLOAT, _C_FLOAT, _C_FLOAT, _PTR, _PTR],
+    "urh_ask_i8": [_PTR, _C_INT64, _C_INT, _C_INT, _C_INT, _PTR, _PTR],
 }
 
 _lib = None

@@ -9,9 +9,11 @@
 // rounded tensor op, and the states must match them exactly.
 //
 // Input is the interleaved (N, 2) capture: x[2i] = I, x[2i+1] = Q.
-// Sample i's discriminator history is x[i-1], read straight from memory
-// (x[-1] := x[0]); sample 0 always gets the noise sentinel and state -1,
-// as urh_tpu's host entries overwrite it.
+// Sample i's discriminator history is x[i-1] (x[-1] := x[0]); sample 0
+// always gets the noise sentinel and state -1, as urh_tpu's host entries
+// overwrite it.  The float32 kernels (K1, K3) take one sample per thread
+// (the *_at functions); the int8 kernels (K2, K4) take kUrhI8Chunk
+// consecutive samples per thread (the *_chunk functions).
 #pragma once
 
 #include <math.h>
@@ -20,6 +22,25 @@
 
 #define URH_FSK_SENTINEL (-4.0f)
 #define URH_ASK_SENTINEL (0.0f)
+
+// Samples per thread of the int8 kernels: 16 samples are 32 B of I/Q in
+// (two 16-byte loads) and 16 B of states out (one 16-byte store).  16 timed
+// faster than 32 (PERF.md).  URH_I8_CHUNK_SWEEP is passed only by
+// tools/i8_chunk_sweep.py, a one-off measurement that nothing in the
+// package depends on.
+#ifdef URH_I8_CHUNK_SWEEP
+constexpr int kUrhI8Chunk = URH_I8_CHUNK_SWEEP;
+#else
+constexpr int kUrhI8Chunk = 16;
+#endif
+
+// nvcc unrolls a chunk loop whose count is a constant after inlining, so
+// the chunk's samples and states stay in registers.
+#ifdef __CUDACC__
+#define URH_UNROLL _Pragma("unroll")
+#else
+#define URH_UNROLL
+#endif
 
 // IEEE sign bit, so that -0.0 counts as negative.
 __host__ __device__ inline bool urh_sign_bit(float v) {
@@ -52,18 +73,18 @@ __host__ __device__ inline void urh_fsk_f32_at(const float* x, int64_t i,
     *state = q == URH_FSK_SENTINEL ? -1 : (q > thr ? 1 : 0);
 }
 
-// K2: FSK states from int8 I/Q without the arctangent.  For |thr| < pi/2,
-// atan2(y, x) > thr reduces to
+// K2: FSK state of one int8 sample (re, im) after (pr, pi), without the
+// arctangent.  For |thr| < pi/2, atan2(y, x) > thr reduces to
 //   x < 0 (incl. -0):    angle is +-(pi/2, pi]  -> not sign(y)
 //   x > 0 or +0, y != 0: y > x * tan(thr)
 //   x == +0, y == +-0:   angle is +-0           -> thr < 0
-// tan_thr is tan(thr) rounded to float32; thr_neg is (thr < 0).
-__host__ __device__ inline int8_t urh_fsk_i8_at(const int8_t* x, int64_t i,
-                                                float noise_sqrd, float tan_thr,
-                                                int thr_neg) {
-    if (i == 0) return -1;
-    const float re = (float)x[2 * i], im = (float)x[2 * i + 1];
-    const float pr = (float)x[2 * i - 2], pi = (float)x[2 * i - 1];
+// tan_thr is tan(thr) rounded to float32; thr_neg is (thr < 0).  The
+// products stay float32 on purpose: products of int8 values give -0.0
+// (e.g. -3.0f * 0.0f), and the sign-bit branches depend on it, so an
+// integer form would change states.
+__host__ __device__ inline int8_t urh_fsk_i8_one(float pr, float pi, float re,
+                                                 float im, float noise_sqrd,
+                                                 float tan_thr, int thr_neg) {
     const float mag2 = re * re + im * im;
     if (mag2 <= noise_sqrd) return -1;
     const float cx = pr * re + pi * im;
@@ -73,6 +94,33 @@ __host__ __device__ inline int8_t urh_fsk_i8_at(const int8_t* x, int64_t i,
     if (cx == 0.0f && !sign_x && cy == 0.0f) return thr_neg ? 1 : 0;
     if (sign_x) return sign_y ? 0 : 1;
     return cy > cx * tan_thr ? 1 : 0;
+}
+
+__host__ __device__ inline int8_t urh_fsk_i8_at(const int8_t* x, int64_t i,
+                                                float noise_sqrd, float tan_thr,
+                                                int thr_neg) {
+    if (i == 0) return -1;
+    return urh_fsk_i8_one((float)x[2 * i - 2], (float)x[2 * i - 1],
+                          (float)x[2 * i], (float)x[2 * i + 1], noise_sqrd,
+                          tan_thr, thr_neg);
+}
+
+// K2 over count consecutive samples x[0 .. 2*count) whose previous sample
+// is (halo_re, halo_im).  Each sample is converted to float once and
+// serves as the next one's previous.  Sample 0 of the capture is the
+// caller's to overwrite with -1.
+__host__ __device__ inline void urh_fsk_i8_chunk(int8_t halo_re, int8_t halo_im,
+                                                 const int8_t* x, int count,
+                                                 float noise_sqrd, float tan_thr,
+                                                 int thr_neg, int8_t* states) {
+    float pr = (float)halo_re, pi = (float)halo_im;
+    URH_UNROLL
+    for (int k = 0; k < count; ++k) {
+        const float re = (float)x[2 * k], im = (float)x[2 * k + 1];
+        states[k] = urh_fsk_i8_one(pr, pi, re, im, noise_sqrd, tan_thr, thr_neg);
+        pr = re;
+        pi = im;
+    }
 }
 
 // K3: ASK envelope sqrt(mag^2) / max_mag (sqrt, then an IEEE division),
@@ -94,13 +142,35 @@ __host__ __device__ inline void urh_ask_f32_at(const float* x, int64_t i,
     *state = gated ? -1 : (val > thr ? 1 : 0);
 }
 
-// K4: ASK states from int8 I/Q, noise and max_mag in raw int8 units.
+// K4: ASK state of one int8 sample by its integer decision.  mag2 = I^2 +
+// Q^2 is an integer in [0, 32768], and the float32 state (gate, sqrt,
+// division, threshold) is a step in it: -1 below gate_below, then
+// above_from_cutoff (0 or 1) from cutoff on and its negation before.
+// ask_i8_decision in dsp/fused_kernels.py reads the three integers off
+// the plain version's own arithmetic.
+__host__ __device__ inline int8_t urh_ask_i8_one(int re, int im, int gate_below,
+                                                 int cutoff, int above_from_cutoff) {
+    const int mag2 = re * re + im * im;
+    if (mag2 < gate_below) return -1;
+    return (int8_t)(mag2 >= cutoff ? above_from_cutoff : 1 - above_from_cutoff);
+}
+
 __host__ __device__ inline int8_t urh_ask_i8_at(const int8_t* x, int64_t i,
-                                                float noise_sqrd, float thr,
-                                                float max_mag) {
+                                                int gate_below, int cutoff,
+                                                int above_from_cutoff) {
     if (i == 0) return -1;
-    const float re = (float)x[2 * i], im = (float)x[2 * i + 1];
-    const float mag2 = re * re + im * im;
-    if (mag2 <= noise_sqrd) return -1;
-    return sqrtf(mag2) / max_mag > thr ? 1 : 0;
+    return urh_ask_i8_one(x[2 * i], x[2 * i + 1], gate_below, cutoff,
+                          above_from_cutoff);
+}
+
+// K4 over count consecutive samples x[0 .. 2*count); no history needed.
+// Sample 0 of the capture is the caller's to overwrite with -1.
+__host__ __device__ inline void urh_ask_i8_chunk(const int8_t* x, int count,
+                                                 int gate_below, int cutoff,
+                                                 int above_from_cutoff,
+                                                 int8_t* states) {
+    URH_UNROLL
+    for (int k = 0; k < count; ++k)
+        states[k] = urh_ask_i8_one(x[2 * k], x[2 * k + 1], gate_below, cutoff,
+                                   above_from_cutoff);
 }

@@ -11,9 +11,12 @@ For a CUDA tensor it launches the kernel on the current stream, without
 synchronizing, and counts the launch in :data:`LAUNCHES`; for a CPU tensor
 it runs the plain version; anything else raises.  The TPU layout (planar
 (rows, 128) tiles, padding, a carry between sequential grid steps) is not
-carried over: each CUDA thread reads its sample and the one before it
-straight from the capture.  Sample 0 always gets the noise sentinel and
-state -1, as the urh_tpu host entries set it.
+carried over: the kernels read the interleaved capture in place, a float32
+thread one sample and an int8 thread a chunk of consecutive samples.  The
+int8 kernels load 16 bytes at a time, so their wrappers copy a capture
+that is not 16-byte aligned first (counted in :data:`ALIGNMENT_COPIES`).
+Sample 0 always gets the noise sentinel and state -1, as the urh_tpu host
+entries set it.
 
 The host entries (``fsk_demod_symbolize`` ...) keep urh_tpu's signatures
 without ``block_rows``/``interpret``; they take (N, 2) numpy or a tensor
@@ -22,6 +25,7 @@ and return tensors on the device they ran on.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -35,6 +39,10 @@ from urh_tpu_torch.dsp.symbols import symbol_states
 
 # kernel name -> launches since the last reset; only a kernel launch counts
 LAUNCHES = {"fsk_f32": 0, "fsk_i8": 0, "ask_f32": 0, "ask_i8": 0}
+# int8 kernel name -> inputs copied to a 16-byte aligned tensor before a launch
+ALIGNMENT_COPIES = {"fsk_i8": 0, "ask_i8": 0}
+# I^2 + Q^2 of an int8 sample lies in [0, I8_MAG2_MAX]
+I8_MAG2_MAX = 2 * 128 * 128
 
 
 def _on_card(x: torch.Tensor, dtype: torch.dtype) -> bool:
@@ -62,6 +70,15 @@ def _launch(name: str, x: torch.Tensor, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"urh_{name} launch failed with CUDA error {rc}")
     LAUNCHES[name] += 1
+
+
+def _aligned(name: str, x: torch.Tensor) -> torch.Tensor:
+    """x, or a fresh (aligned) copy of it where the int8 kernel's 16-byte
+    loads could not read it in place."""
+    if x.data_ptr() % 16 == 0:
+        return x
+    ALIGNMENT_COPIES[name] += 1
+    return x.clone()
 
 
 def fsk_i8_supports(threshold: float) -> bool:
@@ -139,8 +156,8 @@ def fused_fsk_symbolize_i8(x: torch.Tensor, noise_sqrd: float, threshold: float)
     n = x.shape[0]
     states = torch.empty(n, dtype=torch.int8, device=x.device)
     if n:
-        _launch("fsk_i8", x, noise_sqrd, _tan_f32(threshold), int(threshold < 0),
-                states.data_ptr())
+        _launch("fsk_i8", _aligned("fsk_i8", x), noise_sqrd, _tan_f32(threshold),
+                int(threshold < 0), states.data_ptr())
     return states
 
 
@@ -179,6 +196,47 @@ def fused_ask_symbolize_i8_plain(x: torch.Tensor, noise_sqrd: float,
     return states.to(torch.int8)
 
 
+def _all_i8_pairs() -> torch.Tensor:
+    """Every int8 (I, Q) pair once, after a copy of the first (sample 0
+    gets state -1 whatever it holds)."""
+    v = torch.arange(-128, 128, dtype=torch.int8)
+    pairs = torch.stack(torch.meshgrid(v, v, indexing="ij"), -1).reshape(-1, 2)
+    return torch.cat((pairs[:1], pairs))
+
+
+@functools.lru_cache(maxsize=64)  # a capture's repeated calls cost one table
+def ask_i8_decision(noise_sqrd: float, threshold: float,
+                    max_mag: float) -> tuple[int, int, int]:
+    """K4's state as a function of the integer mag2 = I^2 + Q^2.
+
+    -> (gate_below, cutoff, above_from_cutoff): state -1 for mag2 <
+    gate_below, else above_from_cutoff (0 or 1) for mag2 >= cutoff and its
+    negation below.  The plain version's state depends on mag2 alone: the
+    gate mag2 <= noise_sqrd is monotone in mag2, and correctly rounded sqrt
+    and division make sqrt(mag2) / max_mag > threshold a step in mag2, up
+    for max_mag > 0 and down for max_mag < 0 (0, inf and NaN give a step or
+    a constant).  The three integers are read off the plain version's
+    states for every int8 (I, Q) pair and must reproduce each of them, or
+    this raises.
+    """
+    x = _all_i8_pairs()
+    states = fused_ask_symbolize_i8_plain(x, noise_sqrd, threshold, max_mag)[1:].numpy()
+    iq = x[1:].to(torch.int32)
+    mag2 = (iq * iq).sum(1).numpy()
+    order = np.argsort(mag2, kind="stable")
+    m, s = mag2[order], states[order]
+    live = np.flatnonzero(s != -1)  # ungated, by rising mag2
+    change = live[1:][s[live[1:]] != s[live[:-1]]]
+    gate_below = int(m[live[0]]) if len(live) else I8_MAG2_MAX + 1
+    cutoff = int(m[change[0]]) if len(change) else gate_below
+    above = int(s[change[0]]) if len(change) else int(s[live[0]]) if len(live) else 1
+    step = np.where(mag2 < gate_below, -1, np.where(mag2 >= cutoff, above, 1 - above))
+    if not np.array_equal(step, states):
+        raise ValueError(f"ASK int8 states for noise_sqrd={noise_sqrd}, threshold="
+                         f"{threshold}, max_mag={max_mag} are no step in I^2 + Q^2")
+    return gate_below, cutoff, above
+
+
 def fused_ask_symbolize_i8(x: torch.Tensor, noise_sqrd: float, threshold: float,
                            max_mag: float):
     """(N, 2) int8 -> int8 ASK states; noise and max_mag in raw int8 units."""
@@ -187,7 +245,8 @@ def fused_ask_symbolize_i8(x: torch.Tensor, noise_sqrd: float, threshold: float,
     n = x.shape[0]
     states = torch.empty(n, dtype=torch.int8, device=x.device)
     if n:
-        _launch("ask_i8", x, noise_sqrd, threshold, max_mag, states.data_ptr())
+        _launch("ask_i8", _aligned("ask_i8", x),
+                *ask_i8_decision(noise_sqrd, threshold, max_mag), states.data_ptr())
     return states
 
 
