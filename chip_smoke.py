@@ -14,14 +14,36 @@
    for a grid of thresholds and max_mag; each kernel and plain version
    timed at 2^24 with CUDA events beside the kernel's memory bound, and
    the int8 kernels also at 2^26 beside a copy of the same traffic.
-3. Main path: ``urh_tpu_torch.demodulate`` on the default device for
-   2^24-sample FSK and ASK captures (about 8.4 s of a 2 Msps receiver,
-   367 messages of 256 random bits each), as float32 and as int8; every
+   The Costas loop (B5) against its plain version at N = 1, 2, 3, 1000 and
+   2^14, loop orders 2 and 4, on a capture with gated stretches (qad
+   max-abs error 0, the final carry equal), and 7 uneven chained chunks
+   against one shot; then called as the main path calls it on the
+   2^22-sample BPSK capture (offline over x[1:], streamed chunk by chunk)
+   against the plain loop run in 2048-sample pieces side by side, each
+   from its chained carry; timed at 2^22 (3 runs) beside its
+   chain-latency bound, the plain loop at 2^14 (1 run).  The stream block
+   (B6) against its plain version at N = 1, 2, 17, 1000, 2^17, 2^17 + 1
+   and 2^17 + 5, with and without the halo, float32 and int8 ingest, ASK
+   and FSK, binary and 8-ary, and on alternating states that overflow cap
+   (bundles and states equal to the bit, max-abs error 0); timed per
+   2^17-sample chunk and at 2^24.
+3. Main path, offline: ``urh_tpu_torch.demodulate`` on the default device
+   for 2^24-sample FSK and ASK captures (about 8.4 s of a 2 Msps receiver,
+   367 messages of 256 random bits each), as float32 and as int8, and for
+   a 2^22-sample BPSK capture (91 messages after a lock-in burst); every
    message must come back bit-exact and every kernel of the path must have
    been launched by it.
+4. Main path, streaming: ``StreamDemodulator(backend="device")`` over the
+   2^24-sample FSK captures, float32 and int8, in 2^17-sample chunks: all
+   367 messages bit-exact, one stream block launch a chunk, no fallback to
+   per-sample states, each dtype streamed twice in turns; the BPSK
+   capture streamed, its segments the offline pulse runs; stream segments
+   on the card equal those on the CPU.
 
-Every failed check raises.  The last two lines are a JSON ``kernels``
-summary and ``{"ok": true, "device": {...}}``.  Without a CUDA card the
+Every failed check raises.  The last three lines are a JSON ``kernels``
+summary, the card's name and power limit, and ``{"ok": true, "device":
+{...}}``; the line before them has the offline PSK wall time and the
+stream's samples per second.  Without a CUDA card the
 script exits non-zero before it prints any result.
 """
 
@@ -78,15 +100,21 @@ def card_identity() -> str:
     return out.strip().splitlines()[0]
 
 
-def time_ms(fn, flush: torch.Tensor) -> float:
-    """Median device time of ``fn`` over TIMED_RUNS runs after warm-up, with
-    the 50 MB L2 flushed before each run by zeroing ``flush`` (the main
-    path finds its capture cold)."""
-    for _ in range(3):
+def time_ms(fn, flush: torch.Tensor | None = None, runs: int = TIMED_RUNS, warmup: int = 3,
+            before=None) -> float:
+    """Median device time of ``fn`` over ``runs`` runs after ``warmup``
+    ones, CUDA events around fn alone.  Ahead of each timed run the 50 MB
+    L2 is flushed by zeroing ``flush`` (the main path finds its capture
+    cold; it also keeps the card busy while the host enqueues fn), and
+    ``before()`` runs (a reset of state that fn changes)."""
+    for _ in range(warmup):
         fn()
     times = []
-    for _ in range(TIMED_RUNS):
-        flush.zero_()  # keeps the card busy while the host enqueues fn
+    for _ in range(runs):
+        if flush is not None:
+            flush.zero_()
+        if before is not None:
+            before()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -340,7 +368,7 @@ def main_path_phase(device, n: int):
             raise AssertionError(f"{label}: kernel {key} was not launched")
         walls[label] = wall
         print(f"main path {label}: {len(messages)} messages bit-exact, "
-              f"wall {wall:.6f} s", flush=True)
+              f"wall {wall} s", flush=True)
     launches = dict(fk.LAUNCHES)
     missing = [k for k in KERNELS if launches[k] == 0]
     if missing:
@@ -370,6 +398,489 @@ def card_vs_cpu_phase(n: int = 200000):
     print("card vs CPU: messages equal for FSK/ASK float32/int8", flush=True)
 
 
+# -- B5 (Costas loop) and B6 (fused stream block) -----------------------------
+
+B5_SIZES = (1, 2, 3, 1000, 1 << 14)
+B5_ORDERS = (2, 4)
+B5_TIMED_N = 1 << 22
+B5_TIMED_RUNS = 3  # one launch at 2^22 takes a sizeable fraction of a second
+B5_PLAIN_N = 1 << 14  # the plain loop steps sample by sample: timed here
+B5_NOISE = 0.1
+B5_PIECE = 2048  # samples a piece of the plain loop at the main path's sizes
+# dependent FP32 operations on the loop-carried chain a sample (phase ->
+# cosf/sinf -> mix -> error -> clip -> freq -> phase -> wrap -> gate, counted
+# from csrc/costas.cuh in csrc/costas.cu's note) at about 4 cycles each
+B5_CHAIN_CYCLES = 30 * 4
+B5_BYTES_PER_SAMPLE = 8 + 4
+B5_SOURCE = "urh_tpu_torch/csrc/costas.cu"
+B5_REPLACES = "urh_tpu/dsp/demod.py:118"
+
+B6_SIZES = (1, 2, 17, 1000, 1 << 17, (1 << 17) + 1, (1 << 17) + 5)
+STREAM_CHUNK = 1 << 17  # bench.py's chunk
+B6_SOURCE = "urh_tpu_torch/csrc/stream_block.cu"
+B6_REPLACES = "urh_tpu/protocol/stream.py:156"
+# (modulation, center, spacing) of the kernel-phase decisions, for orders 2 and 8
+B6_DECISIONS = {"ASK": (0.3, 0.1), "FSK": (0.0, 0.5)}
+B6_NOISE = 0.05  # normalized units, both ingests
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reads it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def b5_bound_ms(n: int, clock_hz: float) -> tuple[float, str]:
+    chain_ms = n * B5_CHAIN_CYCLES / clock_hz * 1e3
+    byte_ms = n * B5_BYTES_PER_SAMPLE / HBM_BYTES_PER_S * 1e3
+    return max(chain_ms, byte_ms), "operations" if chain_ms >= byte_ms else "bytes"
+
+
+def b6_bytes(n: int, ingest_bytes: int) -> int:
+    """Input read once, the (2 + cap) int32 bundle written once."""
+    return n * ingest_bytes + 4 * (2 + n // 4 + 8)
+
+
+def b5_main_calls_check(device, iq: np.ndarray, chunk: int = STREAM_CHUNK,
+                        piece: int = B5_PIECE) -> tuple[float, int]:
+    """The Costas kernel called as the main path calls it on the BPSK
+    capture iq, against the plain loop, for each loop order: offline, once
+    over x[1:] (N - 1 samples, 8 bytes into the allocation); streamed,
+    over x[1:chunk], then over each chunk as the stream uploads it (the
+    halo sample and the chunk, a fresh allocation) cut to [1:].
+
+    The plain loop steps sample by sample, so it runs over x[1:] in
+    pieces of ``piece`` samples stepped together, each piece from the
+    carry the kernel holds at its start (the kernel run piece by piece).
+    Each piece must end on the next piece's starting carry and the last
+    on both calls' final carries, so the plain loop checks the whole
+    chain.  -> (qad max abs error, qad and carry mismatches)."""
+    from urh_tpu_torch.core.iq import normalize_scale_shift
+    from urh_tpu_torch.dsp import costas
+
+    p = psk_params()
+    nsq = float(np.float32(p.noise_threshold * p.noise_threshold))
+    scale, shift = normalize_scale_shift(np.float32)
+    alpha, beta = costas.costas_alpha_beta(p.costas_loop_bandwidth)
+    x = torch.from_numpy(iq).to(device)
+    n, body = len(x), x[1:]
+    n_pieces = -(-(n - 1) // piece)
+    pieces = torch.zeros((n_pieces * piece, 2), dtype=torch.float32, device=device)
+    pieces[:n - 1] = body  # zero samples pad the last piece: gated, they keep the carry
+    err, mismatch = 0.0, 0
+    for order in B5_ORDERS:
+        def run(v, carry):
+            return costas.costa_demod_scan(v, nsq, scale, shift, order,
+                                           p.costas_loop_bandwidth, carry)
+
+        offline_carry = costas.new_carry(device)
+        offline = run(body, offline_carry)
+        stream_carry = costas.new_carry(device)
+        streamed = [run(x[1:chunk], stream_carry)]
+        streamed += [run(x[a - 1:a + chunk].clone()[1:], stream_carry)
+                     for a in range(chunk, n, chunk)]
+        streamed = torch.cat(streamed)
+        carry, starts = costas.new_carry(device), []
+        for a in range(0, n - 1, piece):
+            starts.append(carry.clone())
+            run(body[a:a + piece], carry)
+        starts = torch.stack(starts)
+        want, phases, freqs = costas.costa_demod_scan_plain(
+            pieces.view(n_pieces, piece, 2), nsq, scale, shift, order, alpha, beta,
+            starts[:, 0], starts[:, 1])
+        want, ends = want.reshape(-1)[:n - 1], torch.stack((phases, freqs), 1)
+        e = max((offline - want).abs().max().item(), (streamed - want).abs().max().item())
+        bad = (int((offline != want).sum()) + int((streamed != want).sum())
+               + int((ends[:-1] != starts[1:]).sum()) + int((ends[-1] != offline_carry).sum())
+               + int((ends[-1] != stream_carry).sum()))
+        err, mismatch = max(err, e), mismatch + bad
+        print(f"costas at the main path's calls, order {order}: offline over {n - 1} "
+              f"samples, streamed in {len(range(0, n, chunk))} chunks, against the plain "
+              f"loop in {n_pieces} pieces of {piece}: max_abs_err {e}, qad and carry "
+              f"mismatches {bad}", flush=True)
+    return err, mismatch
+
+
+def b5_phase(device, sizes=B5_SIZES, timed_n=B5_TIMED_N, plain_n=B5_PLAIN_N,
+             main_n=B5_TIMED_N, chunk=STREAM_CHUNK) -> dict:
+    """The Costas kernel against its plain version (qad to the bit, the
+    final carry equal) at each size and loop order, on a capture with
+    gated stretches; carry chaining over 7 uneven chunks against one shot;
+    the main path's calls on the main_n-sample BPSK capture
+    (b5_main_calls_check); kernel time at timed_n, plain time at plain_n."""
+    from urh_tpu_torch.dsp import costas
+
+    f32, _ = kernel_inputs(max(max(sizes), timed_n), seed=5)
+    nsq = float(np.float32(B5_NOISE ** 2))
+    alpha, beta = costas.costas_alpha_beta(0.1)
+    err, mismatch = 0.0, 0
+    for n in sizes:
+        x = torch.from_numpy(f32[:n]).to(device)
+        for order in B5_ORDERS:
+            carry = costas.new_carry(device)
+            got = costas.costa_demod_scan(x, nsq, 1.0, 0.0, order, 0.1, carry)
+            torch.cuda.synchronize()
+            init = costas.new_carry(device)
+            want, phase, freq = costas.costa_demod_scan_plain(
+                x, nsq, 1.0, 0.0, order, alpha, beta, init[0], init[1])
+            e = (got - want).abs().max().item() if n else 0.0
+            bad = int(((got > 0) != (want > 0)).sum()) + int(
+                not torch.equal(carry, torch.stack((phase, freq))))
+            err, mismatch = max(err, e), mismatch + bad
+            print(f"costas n={n} order={order}: max_abs_err {e}, sign/carry mismatches "
+                  f"{bad}", flush=True)
+    # 7 uneven chunks, the carry handed on in the same tensor
+    n = max(sizes)
+    x = torch.from_numpy(f32[:n]).to(device)
+    cuts = [0, 1, 3, n // 7, n // 3, n // 2 + 1, n - 5, n]  # 7 chunks for n >= 1000
+    for order in B5_ORDERS:
+        one = costas.new_carry(device)
+        whole = costas.costa_demod_scan(x, nsq, 1.0, 0.0, order, 0.1, one)
+        chained = costas.new_carry(device)
+        parts = [costas.costa_demod_scan(x[a:b].contiguous(), nsq, 1.0, 0.0, order, 0.1,
+                                         chained) for a, b in zip(cuts, cuts[1:])]
+        torch.cuda.synchronize()
+        bad = int((torch.cat(parts) != whole).sum()) + int(not torch.equal(one, chained))
+        mismatch += bad
+        print(f"costas chained over {len(cuts) - 1} chunks, order {order}: {bad} "
+              f"mismatches against one shot", flush=True)
+    e, bad = b5_main_calls_check(device, make_psk_capture(main_n, seed=13)[0], chunk)
+    err, mismatch = max(err, e), mismatch + bad
+    if err > 0.0 or mismatch:
+        raise AssertionError(f"costas: max_abs_err {err}, {mismatch} mismatches")
+
+    x = torch.from_numpy(f32[:timed_n]).to(device)
+    carry, init = costas.new_carry(device), costas.new_carry(device)
+    ms = time_ms(lambda: costas.costa_demod_scan(x, nsq, 1.0, 0.0, 2, 0.1, carry),
+                 runs=B5_TIMED_RUNS, warmup=1, before=lambda: carry.copy_(init))
+    xp = x[:plain_n]
+    plain_ms = time_ms(lambda: costas.costa_demod_scan_plain(
+        xp, nsq, 1.0, 0.0, 2, alpha, beta, init[0], init[1]), runs=1, warmup=0)
+    print(f"costas timed: {ms} ms at n={timed_n} (median of {B5_TIMED_RUNS} after 1 "
+          f"warm-up), plain {plain_ms} ms at n={plain_n} (1 run)", flush=True)
+    return {"err": err, "mismatch": mismatch, "ms": ms, "plain_ms": plain_ms}
+
+
+def b6_calls(xf, xi, halo: bool):
+    """(label, x, args) of the stream block for each ingest, modulation
+    and order on the captures xf (float32) and xi (int8)."""
+    from urh_tpu_torch.dsp.symbols import get_center_thresholds
+    from urh_tpu_torch.protocol.stream import rle_state_bits
+
+    nsq = float(np.float32(B6_NOISE ** 2))
+    max_mag = float(np.float32(math.sqrt(2.0)))
+    cap = len(xf) // 4 + 8
+    for ingest, x in (("f32", xf), ("i8", xi)):
+        for mod, (center, spacing) in B6_DECISIONS.items():
+            for order in (2, 8):
+                thr = torch.from_numpy(get_center_thresholds(center, spacing, order)).to(
+                    x.device)
+                yield (f"{ingest} {mod} order {order} halo {int(halo)}", x,
+                       (nsq, max_mag, thr, mod, halo, cap, rle_state_bits(order)))
+
+
+def b6_inputs(n: int):
+    """Float32 and int8 stretches of the FSK and ASK captures (runs of
+    realistic length, gated pauses), interleaved so that both occur."""
+    fsk, _ = make_capture("FSK", 1 << 18, seed=31, pause=2000)
+    ask, _ = make_capture("ASK", 1 << 18, seed=32, pause=2000)
+    mixed = np.where((np.arange(len(fsk)) // 5000 % 2 == 0)[:, None], fsk, ask)
+    reps = -(-(n + 1500) // len(mixed))
+    xf = np.ascontiguousarray(np.tile(mixed, (reps, 1))[1500:1500 + n])
+    return xf, to_int8(xf)
+
+
+def b6_compare(got, want) -> tuple[float, int]:
+    """-> (max abs error, mismatches) of a stream block's (bundle, states)
+    against its plain version's, over every bundle word and state: the
+    peak word read as float32, the others as integers."""
+    (gb, gs), (wb, ws) = got, want
+    bad = int((gb != wb).sum()) + int((gs != ws).sum())
+    peak = (gb[1:2].view(torch.float32).double() - wb[1:2].view(torch.float32).double()).abs()
+    ints = torch.cat((gb[:1].long() - wb[:1].long(), gb[2:].long() - wb[2:].long(),
+                      gs.long() - ws.long())).abs()
+    return max(peak.max().item(), float(ints.max().item())), bad
+
+
+def b6_phase(device, sizes=B6_SIZES, chunk=STREAM_CHUNK, full=N_FULL) -> dict:
+    """The stream block kernels against their plain versions (bundle and
+    states to the bit) at each size, with and without the halo, for both
+    ingests, ASK and FSK, binary and 8-ary, and a cap overflow; kernel and
+    plain times per chunk and at full, for binary FSK."""
+    from urh_tpu_torch.dsp import stream_kernels as sk
+
+    mismatch, err = {"f32": 0, "i8": 0}, {"f32": 0.0, "i8": 0.0}
+    for n in sizes:
+        xf_np, xi_np = b6_inputs(n)
+        xf, xi = torch.from_numpy(xf_np).to(device), torch.from_numpy(xi_np).to(device)
+        for halo in (False, True):
+            if n <= halo:
+                continue
+            for label, x, args in b6_calls(xf, xi, halo):
+                got = sk.stream_block(x, *args)
+                torch.cuda.synchronize()  # a fault in the kernels shows here
+                e, bad = b6_compare(got, sk.stream_block_plain(x, *args))
+                ingest = label[:3].strip()
+                mismatch[ingest], err[ingest] = mismatch[ingest] + bad, max(err[ingest], e)
+                if bad:
+                    print(f"stream block n={n} {label}: {bad} mismatches", flush=True)
+        print(f"stream block n={n}: mismatches {mismatch}, max_abs_err {err}", flush=True)
+    # alternating states: every sample starts a run, far more runs than cap
+    alt = np.zeros((1000, 2), np.float32)
+    alt[:, 0] = np.where(np.arange(1000) % 2, 0.9, 0.2)
+    thr = torch.tensor([0.3], dtype=torch.float32, device=device)
+    for x in (torch.from_numpy(alt).to(device), torch.from_numpy(to_int8(alt)).to(device)):
+        args = (0.0, float(np.float32(math.sqrt(2.0))), thr, "ASK", True, 16, 2)
+        got = sk.stream_block(x, *args)
+        torch.cuda.synchronize()
+        e, bad = b6_compare(got, sk.stream_block_plain(x, *args))
+        if int(got[0][0]) <= 16:
+            raise AssertionError("the alternating capture did not overflow cap")
+        ingest = "f32" if x.dtype == torch.float32 else "i8"
+        mismatch[ingest], err[ingest] = mismatch[ingest] + bad, max(err[ingest], e)
+        print(f"stream block overflow {x.dtype}: n_runs {int(got[0][0])} > cap 16, "
+              f"{bad} mismatches", flush=True)
+    if any(mismatch.values()) or any(err.values()):
+        raise AssertionError(f"stream block mismatches {mismatch}, max_abs_err {err}")
+
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=device)
+    timings = {}
+    xf_np, xi_np = b6_inputs(full)
+    thr = torch.zeros(1, dtype=torch.float32, device=device)
+    for n in (chunk, full):
+        for ingest, x_np in (("f32", xf_np), ("i8", xi_np)):
+            x = torch.from_numpy(x_np[:n]).to(device)
+            args = (float(np.float32(B6_NOISE ** 2)), float(np.float32(math.sqrt(2.0))),
+                    thr, "FSK", True, n // 4 + 8, 2)
+            timings[(ingest, n)] = (
+                time_ms(lambda: sk.stream_block(x, *args), flush),
+                time_ms(lambda: sk.stream_block_plain(x, *args), flush))
+            print(f"stream block {ingest} n={n}: {timings[(ingest, n)][0]} ms, plain "
+                  f"{timings[(ingest, n)][1]} ms", flush=True)
+    return {"mismatch": mismatch, "err": err, "timings": timings}
+
+
+def make_psk_capture(n: int, seed: int, sps: int = 100, n_bits: int = 256,
+                     pause: int = 20000, lock_in: int = 2000):
+    """Synthetic float32 BPSK capture: a lock-in burst of lock_in samples
+    of the carrier (the loop starts off frequency and needs a few symbols
+    to lock; the burst decodes as a first message of ones), a pause, then
+    [message, pause] * k.  A 40 kHz carrier at 1 Msps, bit 1 at phase pi
+    (which the loop locks to as state 1), every message opening with a 1;
+    every length is a whole number of carrier periods (25 samples), so the
+    loop, frozen through a pause, re-enters in phase.  Amplitude 0.75,
+    Gaussian noise of sigma 0.01."""
+    rng = np.random.default_rng(seed)
+    period = pause + n_bits * sps
+    lead = np.concatenate((np.ones(lock_in, np.int8), np.full(pause, -1, np.int8)))
+    n_msgs = (n - len(lead)) // period
+    bits = rng.integers(0, 2, (n_msgs, n_bits), dtype=np.uint8)
+    bits[:, 0] = 1
+    sym = np.zeros((n_msgs, period), dtype=np.int8)
+    sym[:, :n_bits * sps] = np.repeat(bits, sps, axis=1)
+    sym[:, n_bits * sps:] = -1
+    sym = np.concatenate((lead, sym.ravel(), np.full(n - len(lead) - sym.size, -1, np.int8)))
+    phase = np.arange(n) * (2 * np.pi * 40e3 / 1e6) + np.pi * (sym == 1)
+    amp = 0.75 * (sym >= 0)
+    iq = np.empty((n, 2), dtype=np.float32)
+    iq[:, 0] = amp * np.cos(phase)
+    iq[:, 1] = amp * np.sin(phase)
+    iq += rng.normal(0, 0.01, (n, 2)).astype(np.float32)
+    return iq, bits
+
+
+def psk_params():
+    from urh_tpu_torch import DemodParams
+
+    return DemodParams(modulation="PSK", samples_per_symbol=100, center=0.0,
+                       noise_threshold=0.15, tolerance=5, pause_threshold=8)
+
+
+def check_psk_messages(bit_lists, bits, label: str):
+    """The lock-in burst's message of ones, then every sent message."""
+    lock_in = np.asarray(bit_lists[0], np.uint8) if bit_lists else np.zeros(0, np.uint8)
+    if not len(lock_in) or not lock_in.all():
+        raise AssertionError(f"{label}: the first message is not the lock-in burst")
+    check_bits(bit_lists[1:], bits, label)
+
+
+def check_bits(bit_lists, bits, label: str):
+    if len(bit_lists) != len(bits):
+        raise AssertionError(f"{label}: {len(bit_lists)} messages, sent {len(bits)}")
+    for i, (got, sent) in enumerate(zip(bit_lists, bits)):
+        if not np.array_equal(np.frombuffer(bytes(got), np.uint8), sent):
+            raise AssertionError(f"{label}: message {i} differs from the sent bits")
+
+
+def psk_main_path_phase(device, n: int):
+    """demodulate() on the PSK capture; -> (Costas launches, wall, offline
+    pulse runs, capture, bits)."""
+    import urh_tpu_torch as ut
+    from urh_tpu_torch.dsp import costas, symbols
+
+    iq, bits = make_psk_capture(n, seed=13)
+    costas.LAUNCHES["costas_f32"] = 0
+    t0 = time.perf_counter()
+    sig = ut.Signal.from_iq(iq, device=device)
+    messages = ut.demodulate(sig, psk_params())
+    wall = time.perf_counter() - t0
+    launches = costas.LAUNCHES["costas_f32"]
+    check_psk_messages([m.plain_bits for m in messages], bits, "PSK float32")
+    if launches < 1:
+        raise AssertionError("PSK: the Costas kernel was not launched")
+    p = sig.params
+    offline = symbols.grab_pulse_lens(sig.qad, p.center, p.tolerance, p.modulation,
+                                      p.samples_per_symbol, p.bits_per_symbol,
+                                      p.center_spacing)
+    print(f"main path PSK float32: {len(messages) - 1} messages bit-exact after the "
+          f"lock-in burst, Costas launches {launches}, wall {wall} s", flush=True)
+    return launches, wall, offline, iq, bits
+
+
+def stream_segments(sd, data: np.ndarray, chunk: int):
+    segments = []
+    for i in range(0, len(data), chunk):
+        segments += sd.feed(data[i:i + chunk])
+    return segments + sd.flush()
+
+
+def segment_bits(segments, p) -> list:
+    """Each segment's messages, through ProtocolAnalyzer._ppseq_to_bits."""
+    from urh_tpu_torch import ProtocolAnalyzer
+
+    out = []
+    for seg in segments:
+        out += ProtocolAnalyzer._ppseq_to_bits(seg.ppseq, p.samples_per_symbol,
+                                               p.bits_per_symbol,
+                                               pause_threshold=p.pause_threshold)[0]
+    return out
+
+
+def stream_main_path_phase(device, n: int, chunk: int = STREAM_CHUNK):
+    """StreamDemodulator(backend="device") over the FSK captures in chunks,
+    each dtype twice in turns (the first pass also pays the process's
+    first pinned allocations and launches); -> (launch counts of the last
+    pass, samples/s by (dtype, pass))."""
+    import urh_tpu_torch as ut
+    from urh_tpu_torch.dsp import stream_kernels as sk
+    from urh_tpu_torch.protocol import stream
+
+    iq, bits = make_capture("FSK", n, seed=11)
+    launches, rates = {}, {}
+    for run in (1, 2):
+        for dtype, data, key in (("float32", iq, "stream_block_f32"),
+                                 ("int8", to_int8(iq), "stream_block_i8")):
+            params = demod_params("FSK", np.float32)  # normalized units for both
+            sk.LAUNCHES[key] = 0
+            stream.FALLBACKS["states"] = 0
+            sd = ut.StreamDemodulator(params, backend="device", device=device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            segments = stream_segments(sd, data, chunk)
+            wall = time.perf_counter() - t0
+            launches[key] = sk.LAUNCHES[key]
+            rates[(dtype, run)] = n / wall
+            check_bits(segment_bits(segments, params), bits, f"stream FSK {dtype}")
+            chunks = -(-n // chunk)
+            if launches[key] != chunks or stream.FALLBACKS["states"]:
+                raise AssertionError(f"stream FSK {dtype}: {launches[key]} launches for "
+                                     f"{chunks} chunks, {stream.FALLBACKS['states']} "
+                                     f"fallbacks")
+            print(f"stream FSK {dtype} pass {run}: {len(bits)} messages bit-exact from "
+                  f"{len(segments)} segments, {key} launches {launches[key]} for {chunks} "
+                  f"chunks, fallbacks 0, {rates[(dtype, run)]} samples/s (wall {wall} s)",
+                  flush=True)
+    return launches, rates
+
+
+def stream_layers_phase(device, n: int, chunk: int = STREAM_CHUNK) -> dict:
+    """The stream's device layers alone over the FSK captures: each chunk
+    staged into a pinned buffer, uploaded, run through the stream block and
+    its bundle read back and waited for, with none of the host's run
+    handling; -> ms a chunk by dtype (host clock)."""
+    from urh_tpu_torch.dsp import stream_kernels as sk
+    from urh_tpu_torch.protocol import stream
+
+    iq, _ = make_capture("FSK", n, seed=11)
+    thr = torch.zeros(1, dtype=torch.float32, device=device)
+    nsq = float(np.float32(0.15 ** 2))
+    out = {}
+    for dtype, data in (("float32", iq), ("int8", to_int8(iq))):
+        slots = [stream._Slot(), stream._Slot()]
+        for run in (1, 2):  # the first pass allocates the pinned buffers
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for k, i in enumerate(range(0, n, chunk)):
+                slot = slots[k % 2]
+                x = slot.upload([data[i:i + chunk]], device)
+                bundle, _ = sk.stream_block(x, nsq, float(np.float32(math.sqrt(2.0))), thr,
+                                            "FSK", False, len(x) // 4 + 8, 2)
+                slot.download(bundle)
+                slot.bundle()
+            out[dtype] = (time.perf_counter() - t0) * 1e3 / -(-n // chunk)
+        print(f"stream layers {dtype}: staging + upload + stream block + bundle readback "
+              f"{out[dtype]} ms a {chunk}-sample chunk (second pass)", flush=True)
+    return out
+
+
+def psk_stream_phase(device, iq, bits, offline, chunk: int = STREAM_CHUNK) -> int:
+    """The PSK capture streamed: each segment's runs are the offline pulse
+    runs, but for the prompt-closed trailing pause (and the rest of a
+    closed pause opening the next one); its messages the sent bits.
+    -> Costas launches."""
+    import urh_tpu_torch as ut
+    from urh_tpu_torch.dsp import costas
+
+    costas.LAUNCHES["costas_f32"] = 0
+    sd = ut.StreamDemodulator(psk_params(), backend="device", device=device)
+    segments = stream_segments(sd, iq, chunk)
+    launches = costas.LAUNCHES["costas_f32"]
+    offline = [tuple(r) for r in offline.tolist()]
+    at = 0
+    for k, seg in enumerate(segments):
+        rows = [tuple(r) for r in seg.ppseq.tolist()]
+        # a pause left from the previous segment's prompt close, or the
+        # glitch record a segment opening on a signal run starts with
+        while rows and (rows[0][0] == -1 or rows[0][1] <= psk_params().tolerance):
+            rows = rows[1:]
+        if not rows or rows[-1][0] != -1:
+            raise AssertionError(f"PSK stream: segment {k} does not end in a pause")
+        core, closing = rows[:-1], rows[-1]
+        while at < len(offline) and offline[at:at + len(core)] != core:
+            at += 1
+        after = offline[at + len(core)] if at + len(core) < len(offline) else None
+        if after is None or after[0] != -1 or after[1] < closing[1]:
+            raise AssertionError(f"PSK stream: segment {k} is not in the offline runs")
+        at += len(core)
+    check_psk_messages(segment_bits(segments, psk_params()), bits, "PSK stream")
+    print(f"stream PSK: {len(segments)} segments equal the offline runs but for their "
+          f"closing pauses, messages bit-exact, Costas launches {launches}", flush=True)
+    return launches
+
+
+def stream_card_vs_cpu_phase(n: int = 200000, chunk: int = 1 << 14):
+    """Stream segments on the card equal those on the CPU (plain versions)."""
+    import urh_tpu_torch as ut
+
+    cases = []
+    for kind, seed in (("FSK", 41), ("ASK", 42)):
+        iq, _ = make_capture(kind, n, seed, pause=3000)
+        cases += [(kind, iq), (kind, to_int8(iq))]
+    psk, _ = make_psk_capture(20000, seed=43, n_bits=16, pause=2000, lock_in=1000)
+    cases.append(("PSK", psk))
+    for kind, x in cases:
+        params = psk_params if kind == "PSK" else (lambda k=kind: demod_params(k, np.float32))
+        got = stream_segments(ut.StreamDemodulator(params(), device="cuda"), x, chunk)
+        want = stream_segments(ut.StreamDemodulator(params(), device="cpu"), x, chunk)
+        same = ([(s.start_sample, s.num_samples, s.ppseq.tolist()) for s in got]
+                == [(s.start_sample, s.num_samples, s.ppseq.tolist()) for s in want])
+        if not same or not got:
+            raise AssertionError(f"stream {kind} {x.dtype}: card and CPU segments differ")
+    print("stream card vs CPU: segments equal for FSK/ASK float32/int8 and PSK", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
@@ -379,11 +890,21 @@ def main():
     _build.library()
     print(f"build: {time.perf_counter() - t0:.3f} s", flush=True)
     identity = card_identity()
+    clock = sm_clock_hz()
 
     kernels = kernel_phase("cuda")
     stream_phase("cuda")
+    b5 = b5_phase("cuda")
+    b6 = b6_phase("cuda")
     launches, _ = main_path_phase(None, N_FULL)  # None: the default device
     card_vs_cpu_phase()
+    launches["costas_f32"], psk_wall, offline, psk_iq, psk_bits = psk_main_path_phase(
+        None, B5_TIMED_N)
+    stream_launches, rates = stream_main_path_phase(None, N_FULL)
+    launches.update(stream_launches)
+    stream_layers_phase("cuda", N_FULL)
+    launches["costas_f32"] += psk_stream_phase(None, psk_iq, psk_bits, offline)
+    stream_card_vs_cpu_phase()
 
     rows = []
     for key, k in KERNELS.items():
@@ -399,9 +920,35 @@ def main():
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
             "library_ms": None,
         })
-        print(f"{k['name']}: {ms:.4f} ms (bound {max(byte_ms, op_ms):.4f} ms, "
-              f"{rows[-1]['bound_by']}), plain {plain_ms:.4f} ms, "
-              f"launches {launches[key]}", flush=True)
+    bound, bound_by = b5_bound_ms(B5_TIMED_N, clock)
+    rows.append({
+        "name": "costa_demod_scan", "route": "cuda", "source": B5_SOURCE,
+        "replaces": B5_REPLACES, "launches": launches["costas_f32"],
+        "max_abs_err": b5["err"], "state_mismatches": b5["mismatch"],
+        "ms": b5["ms"], "n": B5_TIMED_N, "plain_ms": b5["plain_ms"],
+        "plain_n": B5_PLAIN_N, "bound_ms": bound, "bound_by": bound_by,
+        "library_ms": None,
+    })
+    for ingest, ingest_bytes in (("f32", 8), ("i8", 2)):
+        key = f"stream_block_{ingest}"
+        ms, plain_ms = b6["timings"][(ingest, N_FULL)]
+        rows.append({
+            "name": key, "route": "cuda", "source": B6_SOURCE, "replaces": B6_REPLACES,
+            "launches": launches[key], "max_abs_err": b6["err"][ingest],
+            "state_mismatches": b6["mismatch"][ingest], "ms": ms,
+            "chunk_ms": b6["timings"][(ingest, STREAM_CHUNK)][0], "plain_ms": plain_ms,
+            "bound_ms": b6_bytes(N_FULL, ingest_bytes) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None,
+        })
+    for row in rows:
+        print(f"{row['name']}: {row['ms']:.4f} ms (bound {row['bound_ms']:.4f} ms, "
+              f"{row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
+              f"launches {row['launches']}", flush=True)
+    print(f"offline PSK wall at {B5_TIMED_N} samples: {psk_wall} s; stream samples/s "
+          f"(pass 1, pass 2): float32 {rates[('float32', 1)]}, {rates[('float32', 2)]}; "
+          f"int8 {rates[('int8', 1)]}, {rates[('int8', 2)]} ({N_FULL} samples in "
+          f"{STREAM_CHUNK}-sample chunks) on {identity}, SM clock {clock / 1e6:.0f} MHz",
+          flush=True)
     print(json.dumps({"kernels": rows}))
     print(identity)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """urh_tpu_torch's demodulation and symbol decision against urh_tpu's.
 
 afp_demod (ASK, FSK) in all five ingest dtypes: qad atol 1e-6 (atan2
-implementations differ by an ulp or two).  symbol_states and the pulse
+implementations differ by an ulp or two); PSK and OQPSK on float32.  symbol_states and the pulse
 machine (grab_pulse_lens): exact.
 """
 
@@ -11,6 +11,7 @@ import torch
 
 from urh_tpu.dsp import demod as jax_demod
 from urh_tpu.dsp import symbols as jax_symbols
+from urh_tpu.dsp.modulate import modulate
 from urh_tpu_torch.dsp import demod, symbols
 
 torch.set_num_threads(1)
@@ -59,9 +60,19 @@ def test_afp_demod_short_inputs_are_zero():
 
 
 @pytest.mark.parametrize("mod", ["PSK", "OQPSK"])
-def test_psk_is_not_ported_yet(mod):
-    with pytest.raises(NotImplementedError, match="B5"):
-        demod.afp_demod(_capture(np.float32, 1000, seed=2), 0.1, mod, device="cpu")
+def test_psk_and_oqpsk_match_jax(mod):
+    """PSK runs the Costas loop on a PSK capture (qad atol 1e-4: XLA's
+    cos/sin are not torch's and the loop feeds rounding back; on noise the
+    loop never locks and the two diverge, tests/test_torch_costas.py);
+    OQPSK takes the quadrature discriminator as urh_tpu's host route does
+    (atol 1e-6, as ASK/FSK)."""
+    bits = np.random.default_rng(2).integers(0, 2, 40)
+    x = modulate(bits, 50, "psk", [0.0, np.pi], pause=500)
+    x = (x + np.random.default_rng(3).normal(0, 0.05, x.shape)).astype(np.float32)
+    got = demod.afp_demod(x, 0.1, mod, 2, device="cpu")
+    want = jax_demod.afp_demod(x, 0.1, mod, 2)
+    assert got.dtype == torch.float32 and got.shape == (len(x),) and got[0] == -4.0
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4 if mod == "PSK" else 1e-6)
 
 
 @pytest.mark.parametrize("bits_per_symbol", [1, 2, 3])

@@ -34,6 +34,10 @@ iq[1000:1000 + len(phase), 1] = np.sin(phase)
 params = ut.DemodParams(modulation="FSK", noise_threshold=0.1)
 messages = ut.demodulate(iq, params, device="cpu")
 assert [m.plain_bits_str for m in messages] == ["".join(map(str, bits))], messages
+sd = ut.StreamDemodulator(params, device="cpu")
+segments = [s for i in range(0, len(iq), 1000) for s in sd.feed(iq[i:i + 1000])]
+segments += sd.flush()
+assert len(segments) == 1 and segments[0].ppseq[0, 0] != -1, segments
 loaded = [m for m in sys.modules if m == "urh_tpu" or m.startswith("urh_tpu.")]
 assert not loaded, loaded
 print("ok")
@@ -41,6 +45,8 @@ print("ok")
 
 
 def test_demodulates_with_jax_unimportable_and_loads_no_urh_tpu():
+    """Offline demodulate() and a stream, in a process where JAX cannot be
+    imported."""
     out = subprocess.run([sys.executable, "-c", DEMOD_WITHOUT_JAX], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -78,6 +84,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         Signal.from_iq(iq)
     with pytest.raises(RuntimeError, match="CUDA"):
         urh_tpu_torch.afp_demod(iq, 0.1, "FSK")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        urh_tpu_torch.StreamDemodulator(urh_tpu_torch.DemodParams())
     # an explicit device is honoured
     assert Signal.from_iq(iq, device="cpu").device == torch.device("cpu")
 

@@ -1,8 +1,9 @@
 """urh_tpu_torch — the PyTorch/CUDA port of urh_tpu for NVIDIA Hopper.
 
-Offline demodulation (raw IQ -> noise gate and ASK/FSK demodulation ->
-symbol states -> pulse runs -> bits -> Messages) runs on a CUDA card, with
-the fused demod kernels written by hand in CUDA C++ (``csrc/``).  Entry
+Offline demodulation (raw IQ -> noise gate and ASK/FSK/PSK demodulation
+-> symbol states -> pulse runs -> bits -> Messages) and streaming
+demodulation (chunks -> run segments, :class:`StreamDemodulator`) run on a
+CUDA card, with the kernels written by hand in CUDA C++ (``csrc/``).  Entry
 points run on the card unless the caller passes ``device="cpu"``, where
 every kernel's plain PyTorch version runs instead.  Imports neither JAX
 nor urh_tpu.
@@ -14,12 +15,16 @@ Quick start::
     sig = ut.Signal.from_file("capture.complex")
     sig.modulation_type = "FSK"
     messages = ut.demodulate(sig)              # -> list of bit messages
+
+    sd = ut.StreamDemodulator(ut.DemodParams(modulation="FSK", noise_threshold=0.1))
+    segments = sd.feed(chunk) + sd.flush()     # -> run segments
 """
 
 from urh_tpu_torch.core.iq import IQData
 from urh_tpu_torch.core.signal import Signal
 from urh_tpu_torch.dsp.demod import DemodParams, afp_demod
 from urh_tpu_torch.protocol.analyzer import ProtocolAnalyzer, demodulate
+from urh_tpu_torch.protocol.stream import StreamDemodulator
 
 __version__ = "0.1.0"
 
@@ -30,4 +35,5 @@ __all__ = [
     "afp_demod",
     "ProtocolAnalyzer",
     "demodulate",
+    "StreamDemodulator",
 ]

@@ -1,7 +1,7 @@
 """Build of the CUDA kernels with nvcc, loaded through ctypes.
 
 The sources under ``csrc/`` have a plain C interface (no PyTorch headers),
-so one nvcc call builds them in seconds.  The library lands in
+so one nvcc call builds them all in seconds.  The library lands in
 ``build/urh_tpu_torch/`` beside the package, named by a hash of the
 sources and flags, and is built at first use in each checkout.  Nothing
 here runs at import time: the CPU tests import every module on a machine
@@ -21,22 +21,34 @@ from urh_tpu_torch.util.logging import logger
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "urh_tpu_torch")
-_SOURCES = ["fused_demod.cu", "fused_demod.cuh"]
+_SOURCES = ["fused_demod.cu", "fused_demod.cuh", "costas.cu", "costas.cuh",
+            "stream_block.cu", "stream_block.cuh"]
 
 # numerics-relevant flags are part of the cache key.  No --use_fast_math:
-# K3 parity needs the IEEE sqrtf and division; -fmad=false keeps every
-# product rounded as the separate PyTorch ops round it.
+# K3 parity needs the IEEE sqrtf and division, and the Costas loop the
+# full-accuracy cosf/sinf; -fmad=false keeps every product rounded as the
+# separate PyTorch ops round it.
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 _C_FLOAT, _C_INT, _C_INT64, _PTR = (ctypes.c_float, ctypes.c_int,
                                     ctypes.c_int64, ctypes.c_void_p)
-# launcher name -> argtypes (pointers and the stream as c_void_p)
+# launcher name -> argtypes (pointers and the stream as c_void_p).
+# _SIGNATURES holds fused_demod.cu's, which tools/i8_chunk_sweep.py also
+# binds on builds of that file alone.
 _SIGNATURES = {
     "urh_fsk_f32": [_PTR, _C_INT64, _C_FLOAT, _C_FLOAT, _PTR, _PTR, _PTR],
     "urh_fsk_i8": [_PTR, _C_INT64, _C_FLOAT, _C_FLOAT, _C_INT, _PTR, _PTR],
     "urh_ask_f32": [_PTR, _C_INT64, _C_FLOAT, _C_FLOAT, _C_FLOAT, _PTR, _PTR, _PTR],
     "urh_ask_i8": [_PTR, _C_INT64, _C_INT, _C_INT, _C_INT, _PTR, _PTR],
+}
+# costas.cu's and stream_block.cu's
+_STREAM_SIGNATURES = {
+    "urh_costas_f32": [_PTR, _C_INT64, _C_FLOAT, _C_FLOAT, _C_FLOAT, _C_INT, _C_FLOAT,
+                       _C_FLOAT, _PTR, _PTR, _PTR],
+    **{f"urh_stream_block_{t}": [_PTR, _C_INT64, _C_INT, _C_FLOAT, _C_FLOAT, _C_INT, _PTR,
+                                 _C_INT, _C_INT64, _C_INT, _PTR, _PTR, _PTR, _PTR]
+       for t in ("f32", "i8")},
 }
 
 _lib = None
@@ -68,7 +80,8 @@ def build() -> str:
     tmp = f"{path[:-3]}.{os.getpid()}.tmp.so"
     t0 = time.perf_counter()
     subprocess.run([_nvcc(), *FLAGS, "-o", tmp,
-                    os.path.join(_SRC_DIR, "fused_demod.cu")],
+                    *(os.path.join(_SRC_DIR, name) for name in _SOURCES
+                      if name.endswith(".cu"))],
                    check=True, timeout=600)
     os.replace(tmp, path)  # atomic: concurrent builders never load a partial file
     logger.info("built %s in %.1f s", os.path.basename(path),
@@ -81,7 +94,7 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build())
-        for name, argtypes in _SIGNATURES.items():
+        for name, argtypes in {**_SIGNATURES, **_STREAM_SIGNATURES}.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

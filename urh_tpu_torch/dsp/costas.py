@@ -1,0 +1,140 @@
+"""The Costas loop (B5): PSK carrier recovery as a CUDA kernel.
+
+Port of urh_tpu.dsp.demod._costa_demod_scan (an XLA ``lax.scan``).  The
+loop is a sequential feedback recursion, so on the card one warp runs it
+(``csrc/costas.cu``, per-sample step in ``csrc/costas.cuh``), with the
+(phase, freq) carry in a 2-float device tensor that the kernel reads at
+the start and writes at the end: blocks of a stream chain on the device.
+
+:func:`costa_demod_scan` launches the kernel for a CUDA tensor (counted in
+:data:`LAUNCHES`) and runs :func:`costa_demod_scan_plain` for a CPU one.
+The plain version steps sample by sample with float32 torch ops in the
+kernel's operation order, so it is slow by nature; it serves the tests,
+the CPU path and the comparison on the card.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from urh_tpu_torch import _build
+from urh_tpu_torch.dsp.demod import NOISE_FSK_PSK, scalar_f32
+
+_COSTAS_INIT_PHASE = 1.5  # signal_functions.pyx:261
+DAMPING = math.sqrt(2.0) / 2.0  # signal_functions.pyx:349 (afp_demod)
+
+# kernel name -> launches since the last reset; only a kernel launch counts
+LAUNCHES = {"costas_f32": 0}
+
+
+def costas_alpha_beta(bandwidth: float) -> tuple[float, float]:
+    """The loop gains in float32, in _costa_demod_scan's operation order
+    (urh_tpu/dsp/demod.py:135-137), with the reference's damping."""
+    d, bw = np.float32(DAMPING), np.float32(bandwidth)
+    one, two, four = np.float32(1.0), np.float32(2.0), np.float32(4.0)
+    denom = one + two * d * bw + bw * bw
+    return float(four * d * bw / denom), float(four * bw * bw / denom)
+
+
+def new_carry(device, phase: float = _COSTAS_INIT_PHASE, freq: float = 0.0) -> torch.Tensor:
+    """(phase, freq) as the 2-float tensor the loop reads and writes."""
+    return torch.tensor([phase, freq], dtype=torch.float32, device=device)
+
+
+def _check(x: torch.Tensor, carry: torch.Tensor) -> bool:
+    """Validate the inputs; True for CUDA tensors, False for CPU ones."""
+    if not isinstance(x, torch.Tensor) or x.dtype != torch.float32:
+        raise TypeError("expected float32 samples as a torch.Tensor")
+    if x.dim() != 2 or x.shape[1] != 2 or not x.is_contiguous():
+        raise ValueError(f"expected contiguous (N, 2) I/Q, got {tuple(x.shape)}")
+    if carry.dtype != torch.float32 or carry.shape != (2,) or carry.device != x.device:
+        raise ValueError("carry must be a (2,) float32 tensor on the samples' device")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    return x.device.type == "cuda"
+
+
+def costa_demod_scan_plain(x: torch.Tensor, noise_sqrd: float, scale: float, shift: float,
+                           loop_order: int, alpha: float, beta: float,
+                           phase: torch.Tensor, freq: torch.Tensor):
+    """-> (qad (N,), final phase, final freq), the kernel's arithmetic one
+    float32 torch op at a time.  A gated sample gives the sentinel and
+    leaves the carry as it was (the kernel skips its step).
+
+    x may also be (C, N, 2): C independent streams stepped together, each
+    from its own (phase, freq) of shape (C,) -> qad (C, N) and the final
+    (C,) carries.  Cut one stream into C pieces and start each piece from
+    the carry that the one before ends on, and the qad is the one stream's."""
+    dev = x.device
+    f32 = lambda v: scalar_f32(v, dev)  # noqa: E731
+    two_pi, one, neg_one, zero, two = (f32(2 * math.pi), f32(1.0), f32(-1.0), f32(0.0),
+                                       f32(2.0))
+    alpha, beta = f32(alpha), f32(beta)
+    batch = x.dim() == 3
+    if not batch:
+        x, phase, freq = x[None], phase.reshape(1), freq.reshape(1)
+    raw_re, raw_im = x[..., 0], x[..., 1]
+    gated = raw_re * raw_re + raw_im * raw_im <= f32(noise_sqrd)
+    re = (raw_re + f32(shift)) / f32(scale)
+    im = (raw_im + f32(shift)) / f32(scale)
+    phase = phase.to(dev, torch.float32).clone()
+    freq = freq.to(dev, torch.float32).clone()
+    qad = torch.full(re.shape, NOISE_FSK_PSK, dtype=torch.float32, device=dev)
+    for i in np.flatnonzero(~gated.all(0).cpu().numpy()).tolist():
+        cosn = torch.cos(-phase)
+        sinn = torch.sin(-phase)
+        mix_re = cosn * re[:, i] - sinn * im[:, i]
+        mix_im = cosn * im[:, i] + sinn * re[:, i]
+        if loop_order == 2:
+            error = mix_im * mix_re
+            out = mix_re
+        else:
+            f1 = torch.where(mix_re > zero, one, neg_one)
+            f2 = torch.where(mix_im > zero, one, neg_one)
+            error = f1 * mix_im - f2 * mix_re
+            out = two * mix_re + mix_im
+        error = torch.clamp(error, -1.0, 1.0)
+        new_freq = freq + beta * error
+        new_phase = phase + new_freq + alpha * error
+        new_phase = torch.where(new_phase > two_pi, torch.fmod(new_phase, two_pi), new_phase)
+        new_phase = torch.where(new_phase < -two_pi, -torch.fmod(-new_phase, two_pi),
+                                new_phase)
+        g = gated[:, i]
+        phase = torch.where(g, phase, new_phase)
+        freq = torch.where(g, freq, torch.clamp(new_freq, -1.0, 1.0))
+        qad[:, i] = torch.where(g, qad[:, i], out)
+    if not batch:
+        return qad[0], phase[0], freq[0]
+    return qad, phase, freq
+
+
+def costa_demod_scan(x: torch.Tensor, noise_sqrd: float, scale: float, shift: float,
+                     loop_order: int, bandwidth: float, carry: torch.Tensor) -> torch.Tensor:
+    """Costas loop over x ((N, 2) float32, raw units) -> qad (N,) float32.
+
+    ``carry`` is the (phase, freq) float32 tensor on x's device; it is
+    read at the start and overwritten with the final carry, so a stream's
+    blocks chain by passing the same tensor.  ``loop_order`` 2 runs the
+    2nd-order detector, every order above 2 the 4th-order one."""
+    alpha, beta = costas_alpha_beta(bandwidth)
+    if not _check(x, carry):
+        qad, phase, freq = costa_demod_scan_plain(x, noise_sqrd, scale, shift, loop_order,
+                                                  alpha, beta, carry[0], carry[1])
+        carry[0], carry[1] = phase, freq
+        return qad
+    if x.data_ptr() % 8:
+        raise ValueError("samples must be 8-byte aligned")
+    qad = torch.empty(len(x), dtype=torch.float32, device=x.device)
+    if len(x):
+        fn = _build.library().urh_costas_f32
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            rc = fn(x.data_ptr(), len(x), noise_sqrd, scale, shift, int(loop_order != 2),
+                    alpha, beta, carry.data_ptr(), qad.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"urh_costas_f32 launch failed with CUDA error {rc}")
+        LAUNCHES["costas_f32"] += 1
+    return qad

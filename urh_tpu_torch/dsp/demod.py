@@ -1,10 +1,11 @@
 """Quadrature demodulation (PyTorch port of urh_tpu.dsp.demod).
 
-Behavioral equivalent of the reference's amplitude/frequency demodulator
-(urh/cythonext/signal_functions.pyx:333-378).  ASK and FSK are elementwise
-and run as plain PyTorch ops on the capture's device.  PSK carrier
-recovery (the Costas loop, a sequential feedback recursion) waits for its
-own CUDA kernel: ROADMAP.md queue B, item B5.
+Behavioral equivalent of the reference's amplitude/frequency/phase
+demodulator (urh/cythonext/signal_functions.pyx:252-378).  ASK and FSK
+are elementwise and run as plain PyTorch ops on the capture's device.  PSK
+carrier recovery (the Costas loop, a sequential feedback recursion) runs
+as a CUDA kernel (:mod:`urh_tpu_torch.dsp.costas`).  OQPSK takes the
+quadrature discriminator, as urh_tpu's host route does.
 
 Noise handling matches the reference: samples whose squared magnitude is
 at or below the squared noise threshold produce a modulation-dependent
@@ -19,7 +20,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from urh_tpu_torch.core.iq import max_magnitude_for_dtype, resolve_device
+from urh_tpu_torch.core.iq import (max_magnitude_for_dtype, normalize_scale_shift,
+                                   resolve_device)
 
 NOISE_FSK_PSK = -4.0
 NOISE_ASK = 0.0
@@ -121,12 +123,10 @@ def afp_demod(
     ``device`` (default: the CUDA card).  ``dtype`` overrides the dtype
     used for scale constants (defaults to the samples').  Semantics of
     signal_functions.pyx:333-378.  ``mod_order`` and
-    ``costas_loop_bandwidth`` are the Costas loop's, for PSK.
+    ``costas_loop_bandwidth`` are the Costas loop's, for PSK.  OQPSK
+    takes the quadrature discriminator (urh_tpu's host route,
+    ``_afp_demod_np``, does the same).
     """
-    if mod_type in ("PSK", "OQPSK"):
-        raise NotImplementedError(
-            "PSK demodulation needs the Costas loop kernel, not ported yet "
-            "(ROADMAP.md queue B, item B5)")
     if isinstance(samples, torch.Tensor):
         x = samples
         src_dtype = _NUMPY_DTYPES[x.dtype]
@@ -140,5 +140,17 @@ def afp_demod(
         return torch.zeros(n, dtype=torch.float32, device=x.device)
 
     noise_sqrd = float(np.float32(noise_mag * noise_mag))
-    return afp_demod_vec(x.to(torch.float32), noise_sqrd,
-                          max_magnitude_for_dtype(dtype), mod_type)
+    x = x.to(torch.float32)
+    if mod_type == "PSK":
+        from urh_tpu_torch.dsp import costas  # costas imports this module
+
+        scale, shift = normalize_scale_shift(dtype)
+        # the loop starts at sample 1 (signal_functions.pyx:289); sample 0
+        # gets the noise sentinel, as urh_tpu writes it
+        qad = torch.empty(n, dtype=torch.float32, device=x.device)
+        qad[0] = NOISE_FSK_PSK
+        qad[1:] = costas.costa_demod_scan(x[1:], noise_sqrd, scale, shift, int(mod_order),
+                                          costas_loop_bandwidth, costas.new_carry(x.device))
+        return qad
+    return afp_demod_vec(x, noise_sqrd, max_magnitude_for_dtype(dtype),
+                         "FSK" if mod_type == "OQPSK" else mod_type)
