@@ -14,31 +14,40 @@
    for a grid of thresholds and max_mag; each kernel and plain version
    timed at 2^24 with CUDA events beside the kernel's memory bound, and
    the int8 kernels also at 2^26 beside a copy of the same traffic.
-   The Costas loop (B5) against its plain version at N = 1, 2, 3, 1000 and
-   2^14, loop orders 2 and 4, on a capture with gated stretches (qad
-   max-abs error 0, the final carry equal), and 7 uneven chained chunks
-   against one shot; then called as the main path calls it on the
-   2^22-sample BPSK capture (offline over x[1:], streamed chunk by chunk)
-   against the plain loop run in 2048-sample pieces side by side, each
-   from its chained carry; timed at 2^22 (3 runs) beside its
-   chain-latency bound, the plain loop at 2^14 (1 run).  The stream block
-   (B6) against its plain version at N = 1, 2, 17, 1000, 2^17, 2^17 + 1
-   and 2^17 + 5, with and without the halo, float32 and int8 ingest, ASK
-   and FSK, binary and 8-ary, and on alternating states that overflow cap
-   (bundles and states equal to the bit, max-abs error 0); timed per
-   2^17-sample chunk and at 2^24.
+   The Costas loop (B5): its sincosf against torch.sin and torch.cos over
+   every float32 in [-4*pi, 4*pi] (the same bits); against its plain
+   version at N = 1, 2, 3, 1000 and 2^14, loop orders 2 and 4, on a
+   capture with gated stretches (qad max-abs error 0, the final carry
+   equal), from carries of phase +-13 and +-100 (the wrap's fmodf
+   branch), and 7 uneven chained chunks against one shot; then called as
+   the main path calls it on the 2^22-sample BPSK capture (offline over
+   x[1:], streamed chunk by chunk) against the plain loop run in
+   2048-sample pieces side by side, each from its chained carry; timed at
+   2^22 (3 runs) beside its chain-latency bound, the plain loop at 2^14
+   (1 run).  The stream block (B6) against its plain version at N = 1, 2,
+   17, 1000, one below, at, one past and twice plus one each kernel tile
+   (1,024 float32 and 4,096 int8 samples), 2^17, 2^17 + 1 and 2^17 + 5,
+   with and without the halo, float32 and int8 ingest, ASK and FSK,
+   binary and 8-ary, on a capture whose one pause spans every tile, and
+   on alternating states that overflow cap, with cap around a tile
+   boundary (bundles, and states by the states-only launch, equal to the
+   bit, max-abs error 0); bundles also at 2^22 and 2^24 (float32) and
+   2^24 and 2^25 (int8), where tiles take 2 and 4 groups a thread; timed
+   per 2^17-sample chunk and at 2^24.
 3. Main path, offline: ``urh_tpu_torch.demodulate`` on the default device
    for 2^24-sample FSK and ASK captures (about 8.4 s of a 2 Msps receiver,
    367 messages of 256 random bits each), as float32 and as int8, and for
    a 2^22-sample BPSK capture (91 messages after a lock-in burst); every
    message must come back bit-exact and every kernel of the path must have
-   been launched by it.
+   been launched by it (the Costas loop once).
 4. Main path, streaming: ``StreamDemodulator(backend="device")`` over the
    2^24-sample FSK captures, float32 and int8, in 2^17-sample chunks: all
    367 messages bit-exact, one stream block launch a chunk, no fallback to
    per-sample states, each dtype streamed twice in turns; the BPSK
-   capture streamed, its segments the offline pulse runs; stream segments
-   on the card equal those on the CPU.
+   capture streamed, its segments the offline pulse runs, one Costas
+   launch a chunk; stream segments on the card equal those on the CPU,
+   also for a capture whose runs overflow every bundle (the states-only
+   launch).
 
 Every failed check raises.  The last three lines are a JSON ``kernels``
 summary, the card's name and power limit, and ``{"ok": true, "device":
@@ -406,6 +415,7 @@ B5_TIMED_N = 1 << 22
 B5_TIMED_RUNS = 3  # one launch at 2^22 takes a sizeable fraction of a second
 B5_PLAIN_N = 1 << 14  # the plain loop steps sample by sample: timed here
 B5_NOISE = 0.1
+B5_FAR_PHASES = (13.0, -13.0, 100.0, -100.0)  # carries in the wrap's fmodf branch
 B5_PIECE = 2048  # samples a piece of the plain loop at the main path's sizes
 # dependent FP32 operations on the loop-carried chain a sample (phase ->
 # cosf/sinf -> mix -> error -> clip -> freq -> phase -> wrap -> gate, counted
@@ -415,7 +425,16 @@ B5_BYTES_PER_SAMPLE = 8 + 4
 B5_SOURCE = "urh_tpu_torch/csrc/costas.cu"
 B5_REPLACES = "urh_tpu/dsp/demod.py:118"
 
-B6_SIZES = (1, 2, 17, 1000, 1 << 17, (1 << 17) + 1, (1 << 17) + 5)
+# the stream block kernel's tile in samples, by ingest, at one group a
+# thread (kUrhStreamThreads x kUrhStreamF32Group / kUrhStreamI8Group in
+# csrc/stream_block.cuh), as a chunk of a stream takes it
+B6_TILES = {"f32": 1024, "i8": 4096}
+B6_SIZES = (1, 2, 17, 1000, *sorted({n for t in B6_TILES.values()
+                                     for n in (t - 1, t, t + 1, 2 * t + 1)}),
+            1 << 17, (1 << 17) + 1, (1 << 17) + 5)
+# blocks whose tiles take 2 and 4 groups a thread (urh_stream_groups on
+# 132 SMs), by ingest
+B6_LARGE = (("f32", 1 << 22), ("f32", 1 << 24), ("i8", 1 << 24), ("i8", 1 << 25))
 STREAM_CHUNK = 1 << 17  # bench.py's chunk
 B6_SOURCE = "urh_tpu_torch/csrc/stream_block.cu"
 B6_REPLACES = "urh_tpu/protocol/stream.py:156"
@@ -503,34 +522,61 @@ def b5_main_calls_check(device, iq: np.ndarray, chunk: int = STREAM_CHUNK,
     return err, mismatch
 
 
+def b5_sincos_sweep(device, stride: int = 1, batch: int = 1 << 26) -> int:
+    """The loop's sincosf and its near version (costas.loop_sincos) against
+    torch.sin and torch.cos on every stride-th float32 in [-4*pi, 4*pi],
+    bit for bit: the plain loop takes torch's, so the kernel must give the
+    same bits.  -> mismatching results."""
+    from urh_tpu_torch.dsp import costas
+
+    top = int(np.float32(4 * np.pi).view(np.int32))  # float32(4*pi) <= 4*pi < the next one
+    bad = values = 0
+    for sign in (0, -(1 << 31)):  # the positive floats, then the negative ones
+        for a in range(0, top + 1, batch * stride):
+            bits = torch.arange(a, min(a + batch * stride, top + 1), stride, dtype=torch.int32,
+                                device=device)
+            x = (bits + sign).view(torch.float32)
+            want = torch.sin(x).view(torch.int32), torch.cos(x).view(torch.int32)
+            for s, c in costas.loop_sincos(x):
+                bad += int((s.view(torch.int32) != want[0]).sum())
+                bad += int((c.view(torch.int32) != want[1]).sum())
+            values += len(x)
+    print(f"costas sincosf and its near version against torch.sin/torch.cos on {values} "
+          f"float32 values in [-4*pi, 4*pi]: {bad} mismatching results", flush=True)
+    return bad
+
+
 def b5_phase(device, sizes=B5_SIZES, timed_n=B5_TIMED_N, plain_n=B5_PLAIN_N,
-             main_n=B5_TIMED_N, chunk=STREAM_CHUNK) -> dict:
-    """The Costas kernel against its plain version (qad to the bit, the
-    final carry equal) at each size and loop order, on a capture with
-    gated stretches; carry chaining over 7 uneven chunks against one shot;
-    the main path's calls on the main_n-sample BPSK capture
-    (b5_main_calls_check); kernel time at timed_n, plain time at plain_n."""
+             main_n=B5_TIMED_N, chunk=STREAM_CHUNK, sweep_stride=1) -> dict:
+    """The Costas kernel's sincosf against torch's (b5_sincos_sweep); the
+    kernel against its plain version (qad to the bit, the final carry
+    equal) at each size and loop order, on a capture with gated stretches,
+    and from carries with |phase| >= 4*pi; carry chaining over 7 uneven
+    chunks against one shot; the main path's calls on the main_n-sample
+    BPSK capture (b5_main_calls_check); kernel time at timed_n, plain time
+    at plain_n."""
     from urh_tpu_torch.dsp import costas
 
     f32, _ = kernel_inputs(max(max(sizes), timed_n), seed=5)
     nsq = float(np.float32(B5_NOISE ** 2))
     alpha, beta = costas.costas_alpha_beta(0.1)
-    err, mismatch = 0.0, 0
-    for n in sizes:
+    err, mismatch = 0.0, b5_sincos_sweep(device, sweep_stride)
+    cases = [(n, costas.new_carry(device)) for n in sizes]
+    cases += [(1000, costas.new_carry(device, phase=p, freq=0.5)) for p in B5_FAR_PHASES]
+    for n, start in cases:
         x = torch.from_numpy(f32[:n]).to(device)
         for order in B5_ORDERS:
-            carry = costas.new_carry(device)
+            carry = start.clone()
             got = costas.costa_demod_scan(x, nsq, 1.0, 0.0, order, 0.1, carry)
             torch.cuda.synchronize()
-            init = costas.new_carry(device)
             want, phase, freq = costas.costa_demod_scan_plain(
-                x, nsq, 1.0, 0.0, order, alpha, beta, init[0], init[1])
+                x, nsq, 1.0, 0.0, order, alpha, beta, start[0], start[1])
             e = (got - want).abs().max().item() if n else 0.0
-            bad = int(((got > 0) != (want > 0)).sum()) + int(
+            bad = int((got != want).sum()) + int(
                 not torch.equal(carry, torch.stack((phase, freq))))
             err, mismatch = max(err, e), mismatch + bad
-            print(f"costas n={n} order={order}: max_abs_err {e}, sign/carry mismatches "
-                  f"{bad}", flush=True)
+            print(f"costas n={n} order={order} from phase {start[0].item()}: max_abs_err {e}, "
+                  f"qad/carry mismatches {bad}", flush=True)
     # 7 uneven chunks, the carry handed on in the same tensor
     n = max(sizes)
     x = torch.from_numpy(f32[:n]).to(device)
@@ -592,6 +638,16 @@ def b6_inputs(n: int):
     return xf, to_int8(xf)
 
 
+def b6_run(x, args):
+    """The stream block's bundle and, by the states-only launch, its
+    states, as the plain version returns them."""
+    from urh_tpu_torch.dsp import stream_kernels as sk
+
+    got = sk.stream_block(x, *args), sk.stream_states(x, *args[:-2])
+    torch.cuda.synchronize()  # a fault in the kernels shows here
+    return got
+
+
 def b6_compare(got, want) -> tuple[float, int]:
     """-> (max abs error, mismatches) of a stream block's (bundle, states)
     against its plain version's, over every bundle word and state: the
@@ -604,12 +660,14 @@ def b6_compare(got, want) -> tuple[float, int]:
     return max(peak.max().item(), float(ints.max().item())), bad
 
 
-def b6_phase(device, sizes=B6_SIZES, chunk=STREAM_CHUNK, full=N_FULL) -> dict:
+def b6_phase(device, sizes=B6_SIZES, chunk=STREAM_CHUNK, full=N_FULL, large=B6_LARGE) -> dict:
     """The stream block kernels against their plain versions (bundle and
     states to the bit) at each size, with and without the halo, for both
-    ingests, ASK and FSK, binary and 8-ary, and a cap overflow; kernel and
-    plain times per chunk and at full, for binary FSK."""
+    ingests, ASK and FSK, binary and 8-ary, and a cap overflow; bundles
+    also for the large blocks; kernel and plain times per chunk and at
+    full, for binary FSK (and the kernel's for 8-ary FSK)."""
     from urh_tpu_torch.dsp import stream_kernels as sk
+    from urh_tpu_torch.dsp.symbols import get_center_thresholds
 
     mismatch, err = {"f32": 0, "i8": 0}, {"f32": 0.0, "i8": 0.0}
     for n in sizes:
@@ -619,29 +677,54 @@ def b6_phase(device, sizes=B6_SIZES, chunk=STREAM_CHUNK, full=N_FULL) -> dict:
             if n <= halo:
                 continue
             for label, x, args in b6_calls(xf, xi, halo):
-                got = sk.stream_block(x, *args)
-                torch.cuda.synchronize()  # a fault in the kernels shows here
-                e, bad = b6_compare(got, sk.stream_block_plain(x, *args))
+                e, bad = b6_compare(b6_run(x, args), sk.stream_block_plain(x, *args))
                 ingest = label[:3].strip()
                 mismatch[ingest], err[ingest] = mismatch[ingest] + bad, max(err[ingest], e)
                 if bad:
                     print(f"stream block n={n} {label}: {bad} mismatches", flush=True)
         print(f"stream block n={n}: mismatches {mismatch}, max_abs_err {err}", flush=True)
-    # alternating states: every sample starts a run, far more runs than cap
-    alt = np.zeros((1000, 2), np.float32)
-    alt[:, 0] = np.where(np.arange(1000) % 2, 0.9, 0.2)
+    # one pause over every tile of a 2^17 + 5 block, a short signal at either end
+    pause = np.zeros(((1 << 17) + 5, 2), np.float32)
+    pause[:300], pause[-300:] = b6_inputs(300)[0], b6_inputs(600)[0][300:]
+    for halo in (False, True):
+        for label, x, args in b6_calls(torch.from_numpy(pause).to(device),
+                                       torch.from_numpy(to_int8(pause)).to(device), halo):
+            e, bad = b6_compare(b6_run(x, args), sk.stream_block_plain(x, *args))
+            ingest = label[:3].strip()
+            mismatch[ingest], err[ingest] = mismatch[ingest] + bad, max(err[ingest], e)
+    print(f"stream block, one pause over every tile: mismatches {mismatch}", flush=True)
+    # alternating states: every sample starts a run, far more runs than cap;
+    # the start of rank cap - 1 around the first state of a tile
+    alt = np.zeros((3 * B6_TILES["i8"], 2), np.float32)
+    alt[:, 0] = np.where(np.arange(len(alt)) % 2, 0.9, 0.2)
     thr = torch.tensor([0.3], dtype=torch.float32, device=device)
     for x in (torch.from_numpy(alt).to(device), torch.from_numpy(to_int8(alt)).to(device)):
-        args = (0.0, float(np.float32(math.sqrt(2.0))), thr, "ASK", True, 16, 2)
-        got = sk.stream_block(x, *args)
-        torch.cuda.synchronize()
-        e, bad = b6_compare(got, sk.stream_block_plain(x, *args))
-        if int(got[0][0]) <= 16:
-            raise AssertionError("the alternating capture did not overflow cap")
         ingest = "f32" if x.dtype == torch.float32 else "i8"
-        mismatch[ingest], err[ingest] = mismatch[ingest] + bad, max(err[ingest], e)
-        print(f"stream block overflow {x.dtype}: n_runs {int(got[0][0])} > cap 16, "
-              f"{bad} mismatches", flush=True)
+        tile = B6_TILES[ingest]
+        for halo in (False, True):
+            for cap in (16, tile - 1, tile, tile + 1, 2 * tile + 1):
+                args = (0.0, float(np.float32(math.sqrt(2.0))), thr, "ASK", halo, cap, 2)
+                got = b6_run(x, args)
+                e, bad = b6_compare(got, sk.stream_block_plain(x, *args))
+                if int(got[0][0]) <= cap:
+                    raise AssertionError("the alternating capture did not overflow cap")
+                mismatch[ingest], err[ingest] = mismatch[ingest] + bad, max(err[ingest], e)
+        print(f"stream block overflow {x.dtype}, caps around the tile of {tile}: "
+              f"mismatches {mismatch[ingest]}", flush=True)
+    # large blocks, whose tiles take more groups a thread
+    for ingest, n in large:
+        xf_np, xi_np = b6_inputs(n)
+        x = torch.from_numpy(xf_np if ingest == "f32" else xi_np).to(device)
+        del xf_np, xi_np
+        for halo in (False, True):
+            for label, xx, args in b6_calls(x, x, halo):
+                if label.startswith(ingest):
+                    got = sk.stream_block(xx, *args)
+                    torch.cuda.synchronize()
+                    want = sk.stream_block_plain(xx, *args)[0]
+                    mismatch[ingest] += int((got != want).sum())
+        print(f"stream block {ingest} n={n}: bundle mismatches {mismatch[ingest]}", flush=True)
+        del x
     if any(mismatch.values()) or any(err.values()):
         raise AssertionError(f"stream block mismatches {mismatch}, max_abs_err {err}")
 
@@ -657,8 +740,12 @@ def b6_phase(device, sizes=B6_SIZES, chunk=STREAM_CHUNK, full=N_FULL) -> dict:
             timings[(ingest, n)] = (
                 time_ms(lambda: sk.stream_block(x, *args), flush),
                 time_ms(lambda: sk.stream_block_plain(x, *args), flush))
+            # 8-ary FSK, whose decision takes the arctangent
+            thr8 = torch.from_numpy(get_center_thresholds(0.0, 0.5, 8)).to(device)
+            args8 = (*args[:2], thr8, "FSK", True, n // 4 + 8, 4)
+            ms8 = time_ms(lambda: sk.stream_block(x, *args8), flush)
             print(f"stream block {ingest} n={n}: {timings[(ingest, n)][0]} ms, plain "
-                  f"{timings[(ingest, n)][1]} ms", flush=True)
+                  f"{timings[(ingest, n)][1]} ms; 8-ary FSK {ms8} ms", flush=True)
     return {"mismatch": mismatch, "err": err, "timings": timings}
 
 
@@ -728,8 +815,8 @@ def psk_main_path_phase(device, n: int):
     wall = time.perf_counter() - t0
     launches = costas.LAUNCHES["costas_f32"]
     check_psk_messages([m.plain_bits for m in messages], bits, "PSK float32")
-    if launches < 1:
-        raise AssertionError("PSK: the Costas kernel was not launched")
+    if launches != 1:
+        raise AssertionError(f"PSK: {launches} Costas launches, not 1")
     p = sig.params
     offline = symbols.grab_pulse_lens(sig.qad, p.center, p.tolerance, p.modulation,
                                       p.samples_per_symbol, p.bits_per_symbol,
@@ -815,8 +902,8 @@ def stream_layers_phase(device, n: int, chunk: int = STREAM_CHUNK) -> dict:
             for k, i in enumerate(range(0, n, chunk)):
                 slot = slots[k % 2]
                 x = slot.upload([data[i:i + chunk]], device)
-                bundle, _ = sk.stream_block(x, nsq, float(np.float32(math.sqrt(2.0))), thr,
-                                            "FSK", False, len(x) // 4 + 8, 2)
+                bundle = sk.stream_block(x, nsq, float(np.float32(math.sqrt(2.0))), thr,
+                                         "FSK", False, len(x) // 4 + 8, 2)
                 slot.download(bundle)
                 slot.bundle()
             out[dtype] = (time.perf_counter() - t0) * 1e3 / -(-n // chunk)
@@ -855,14 +942,21 @@ def psk_stream_phase(device, iq, bits, offline, chunk: int = STREAM_CHUNK) -> in
             raise AssertionError(f"PSK stream: segment {k} is not in the offline runs")
         at += len(core)
     check_psk_messages(segment_bits(segments, psk_params()), bits, "PSK stream")
+    if launches != -(-len(iq) // chunk):
+        raise AssertionError(f"PSK stream: {launches} Costas launches for "
+                             f"{-(-len(iq) // chunk)} chunks")
     print(f"stream PSK: {len(segments)} segments equal the offline runs but for their "
           f"closing pauses, messages bit-exact, Costas launches {launches}", flush=True)
     return launches
 
 
 def stream_card_vs_cpu_phase(n: int = 200000, chunk: int = 1 << 14):
-    """Stream segments on the card equal those on the CPU (plain versions)."""
+    """Stream segments on the card equal those on the CPU (plain versions),
+    also for alternating states that overflow every chunk's bundle (the
+    per-sample states then come from the states-only launch)."""
     import urh_tpu_torch as ut
+    from urh_tpu_torch.dsp import stream_kernels as sk
+    from urh_tpu_torch.protocol import stream
 
     cases = []
     for kind, seed in (("FSK", 41), ("ASK", 42)):
@@ -870,15 +964,31 @@ def stream_card_vs_cpu_phase(n: int = 200000, chunk: int = 1 << 14):
         cases += [(kind, iq), (kind, to_int8(iq))]
     psk, _ = make_psk_capture(20000, seed=43, n_bits=16, pause=2000, lock_in=1000)
     cases.append(("PSK", psk))
+    alt = np.zeros((3 * chunk, 2), np.float32)
+    alt[:, 0] = np.where(np.arange(len(alt)) % 2, 0.9, 0.2)
+    alt[:1000, 0], alt[1000:3000] = 0.9, 0.0  # a message, then a pause that closes it
+    alt[2 * chunk:] = 0.0  # a closing pause
+    cases += [("ASK overflow", alt), ("ASK overflow", to_int8(alt))]
     for kind, x in cases:
-        params = psk_params if kind == "PSK" else (lambda k=kind: demod_params(k, np.float32))
+        if kind == "PSK":
+            params = psk_params
+        else:
+            params = lambda k=kind: demod_params(k.split()[0], np.float32)  # noqa: E731
+        before = dict(sk.LAUNCHES), stream.FALLBACKS["states"]
         got = stream_segments(ut.StreamDemodulator(params(), device="cuda"), x, chunk)
+        states_launches = sum(sk.LAUNCHES[k] - before[0][k] for k in sk.LAUNCHES
+                              if k.startswith("stream_states"))
+        fallbacks = stream.FALLBACKS["states"] - before[1]
         want = stream_segments(ut.StreamDemodulator(params(), device="cpu"), x, chunk)
         same = ([(s.start_sample, s.num_samples, s.ppseq.tolist()) for s in got]
                 == [(s.start_sample, s.num_samples, s.ppseq.tolist()) for s in want])
         if not same or not got:
             raise AssertionError(f"stream {kind} {x.dtype}: card and CPU segments differ")
-    print("stream card vs CPU: segments equal for FSK/ASK float32/int8 and PSK", flush=True)
+        if kind.endswith("overflow") and (fallbacks < 2 or states_launches != fallbacks):
+            raise AssertionError(f"stream {kind} {x.dtype}: {fallbacks} fallbacks, "
+                                 f"{states_launches} states-only launches")
+    print("stream card vs CPU: segments equal for FSK/ASK float32/int8, PSK, and overflowing "
+          "ASK float32/int8 through the states-only launch", flush=True)
 
 
 def main():

@@ -244,14 +244,34 @@ def test_plain_bundle_matches_jax_runs_body(ingest, mod, order):
             if n <= halo:
                 continue
             cap = n // 4 + 8
-            got, states = sk.stream_block(torch.from_numpy(x), nsq, max_mag,
-                                          torch.from_numpy(thr), mod, halo, cap, bits)
+            got = sk.stream_block(torch.from_numpy(x), nsq, max_mag,
+                                  torch.from_numpy(thr), mod, halo, cap, bits)
+            states = sk.stream_states(torch.from_numpy(x), nsq, max_mag,
+                                      torch.from_numpy(thr), mod, halo)
             want = jax_stream._runs_body(jnp.asarray(xf), jnp.float32(nsq),
                                          jnp.float32(max_mag), jnp.asarray(thr),
                                          jnp.float32(-4.0 if mod == "FSK" else 0.0), mod,
                                          halo, cap, bits)
             np.testing.assert_array_equal(got.numpy(), np.asarray(want))
             assert states.dtype == torch.int8 and len(states) == n - halo
+
+
+@pytest.mark.parametrize("mod", ["ASK", "FSK"])
+@pytest.mark.parametrize("ingest", ["f32", "i8"])
+def test_stream_states_match_jax_block_states(ingest, mod):
+    """The states-only launch's CPU path: urh_tpu's _block_states after
+    drop_first, exact."""
+    thr = get_center_thresholds(*((0.3, 0.1) if mod == "ASK" else (0.0, 0.5)), 4)
+    nsq, max_mag = float(np.float32(0.01 ** 2)), float(np.float32(np.sqrt(2.0)))
+    x = _block_input(3001, ingest, seed=5)
+    xf = x.astype(np.float32) * np.float32(1 / 128) if ingest == "i8" else x
+    want, _ = jax_stream._block_states(jnp.asarray(xf), jnp.float32(nsq), jnp.float32(max_mag),
+                                       jnp.asarray(thr),
+                                       jnp.float32(-4.0 if mod == "FSK" else 0.0), mod)
+    for halo in (False, True):
+        got = sk.stream_states(torch.from_numpy(x), nsq, max_mag, torch.from_numpy(thr), mod,
+                               halo)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want)[int(halo):])
 
 
 @pytest.mark.parametrize("ingest", ["f32", "i8"])
@@ -261,8 +281,8 @@ def test_plain_bundle_overflow_matches_jax(ingest):
     xi = x if ingest == "f32" else _i8(x)
     xf = x if ingest == "f32" else xi.astype(np.float32) * np.float32(1 / 128)
     thr = np.float32([0.3])
-    got, _ = sk.stream_block(torch.from_numpy(xi), 0.0, 1.4142135, torch.from_numpy(thr),
-                             "ASK", True, 16, 2)
+    got = sk.stream_block(torch.from_numpy(xi), 0.0, 1.4142135, torch.from_numpy(thr),
+                          "ASK", True, 16, 2)
     want = jax_stream._runs_body(jnp.asarray(xf), jnp.float32(0.0), jnp.float32(1.4142135),
                                  jnp.asarray(thr), jnp.float32(0.0), "ASK", True, 16, 2)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))

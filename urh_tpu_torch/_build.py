@@ -1,7 +1,7 @@
 """Build of the CUDA kernels with nvcc, loaded through ctypes.
 
 The sources under ``csrc/`` have a plain C interface (no PyTorch headers),
-so one nvcc call builds them all in seconds.  The library lands in
+so nvcc builds them in seconds, one process a source, all at once.  The library lands in
 ``build/urh_tpu_torch/`` beside the package, named by a hash of the
 sources and flags, and is built at first use in each checkout.  Nothing
 here runs at import time: the CPU tests import every module on a machine
@@ -26,7 +26,7 @@ _SOURCES = ["fused_demod.cu", "fused_demod.cuh", "costas.cu", "costas.cuh",
 
 # numerics-relevant flags are part of the cache key.  No --use_fast_math:
 # K3 parity needs the IEEE sqrtf and division, and the Costas loop the
-# full-accuracy cosf/sinf; -fmad=false keeps every product rounded as the
+# full-accuracy sincosf; -fmad=false keeps every product rounded as the
 # separate PyTorch ops round it.
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
@@ -46,10 +46,16 @@ _SIGNATURES = {
 _STREAM_SIGNATURES = {
     "urh_costas_f32": [_PTR, _C_INT64, _C_FLOAT, _C_FLOAT, _C_FLOAT, _C_INT, _C_FLOAT,
                        _C_FLOAT, _PTR, _PTR, _PTR],
+    "urh_costas_sincos_f32": [_PTR, _C_INT64, _PTR, _PTR, _PTR, _PTR, _PTR],
     **{f"urh_stream_block_{t}": [_PTR, _C_INT64, _C_INT, _C_FLOAT, _C_FLOAT, _C_INT, _PTR,
-                                 _C_INT, _C_INT64, _C_INT, _PTR, _PTR, _PTR, _PTR]
+                                 _C_INT, _C_INT64, _C_INT, _PTR, _PTR]
+       for t in ("f32", "i8")},
+    **{f"urh_stream_states_{t}": [_PTR, _C_INT64, _C_INT, _C_FLOAT, _C_FLOAT, _C_INT, _PTR,
+                                  _C_INT, _PTR, _PTR]
        for t in ("f32", "i8")},
 }
+# the one launcher-side helper that returns a size, not a CUDA error
+_WORK_WORDS = ("urh_stream_block_work_words", [_C_INT64, _C_INT64, _C_INT])
 
 _lib = None
 
@@ -72,18 +78,32 @@ def _source_hash() -> str:
 
 
 def build() -> str:
-    """Compile the kernel library if this checkout has not yet; -> .so path."""
+    """Compile the kernel library if this checkout has not yet; -> .so path.
+    One nvcc a source, all started together, then one link."""
     path = os.path.join(BUILD_DIR, f"libfused_demod_{_source_hash()}.so")
     if os.path.isfile(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path[:-3]}.{os.getpid()}.tmp.so"
+    tmp = f"{path[:-3]}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    subprocess.run([_nvcc(), *FLAGS, "-o", tmp,
-                    *(os.path.join(_SRC_DIR, name) for name in _SOURCES
-                      if name.endswith(".cu"))],
-                   check=True, timeout=600)
-    os.replace(tmp, path)  # atomic: concurrent builders never load a partial file
+    compile_flags = [f for f in FLAGS if f != "-shared"]
+    units = [(os.path.join(_SRC_DIR, name), f"{tmp}.{name[:-3]}.o")
+             for name in _SOURCES if name.endswith(".cu")]
+    objs = [obj for _, obj in units]
+    procs = [subprocess.Popen([_nvcc(), *compile_flags, "-c", "-o", obj, src])
+             for src, obj in units]
+    try:
+        for proc in procs:
+            if proc.wait(timeout=600):
+                raise subprocess.CalledProcessError(proc.returncode, proc.args)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+    subprocess.run([_nvcc(), *FLAGS, "-o", f"{tmp}.so", *objs], check=True, timeout=600)
+    for obj in objs:
+        os.remove(obj)
+    os.replace(f"{tmp}.so", path)  # atomic: concurrent builders never load a partial file
     logger.info("built %s in %.1f s", os.path.basename(path),
                 time.perf_counter() - t0)
     return path
@@ -98,5 +118,7 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        fn = getattr(lib, _WORK_WORDS[0])
+        fn.argtypes, fn.restype = _WORK_WORDS[1], _C_INT64
         _lib = lib
     return _lib

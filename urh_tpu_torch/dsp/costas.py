@@ -2,9 +2,11 @@
 
 Port of urh_tpu.dsp.demod._costa_demod_scan (an XLA ``lax.scan``).  The
 loop is a sequential feedback recursion, so on the card one warp runs it
-(``csrc/costas.cu``, per-sample step in ``csrc/costas.cuh``), with the
-(phase, freq) carry in a 2-float device tensor that the kernel reads at
-the start and writes at the end: blocks of a stream chain on the device.
+(``csrc/costas.cu``, per-sample step in ``csrc/costas.cuh``): the warp
+gates and normalises each tile, and lane 0 runs only the loop-carried
+chain.  The (phase, freq) carry is a 2-float device tensor that the
+kernel reads at the start and writes at the end: blocks of a stream chain
+on the device.
 
 :func:`costa_demod_scan` launches the kernel for a CUDA tensor (counted in
 :data:`LAUNCHES`) and runs :func:`costa_demod_scan_plain` for a CPU one.
@@ -138,3 +140,23 @@ def costa_demod_scan(x: torch.Tensor, noise_sqrd: float, scale: float, shift: fl
             raise RuntimeError(f"urh_costas_f32 launch failed with CUDA error {rc}")
         LAUNCHES["costas_f32"] += 1
     return qad
+
+
+def loop_sincos(x: torch.Tensor):
+    """-> ((sin x, cos x), (sin x, cos x)) as the loop's step takes them:
+    for a CUDA float32 tensor, the kernel's sincosf and its near version
+    (one launch, not counted: it serves only the check of their bits
+    against torch.sin and torch.cos); for a CPU one, torch.sin and torch.cos
+    twice."""
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("expected a contiguous float32 tensor")
+    if x.device.type == "cpu":
+        return (torch.sin(x), torch.cos(x)), (torch.sin(x), torch.cos(x))
+    out = [torch.empty_like(x) for _ in range(4)]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _build.library().urh_costas_sincos_f32(x.data_ptr(), x.numel(),
+                                                     *(o.data_ptr() for o in out), stream)
+    if rc != 0:
+        raise RuntimeError(f"urh_costas_sincos_f32 launch failed with CUDA error {rc}")
+    return (out[0], out[1]), (out[2], out[3])

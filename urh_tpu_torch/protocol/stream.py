@@ -13,7 +13,9 @@ boundaries.  Carry state chained across chunks:
 
 ASK and FSK chunks run through the fused stream block kernel
 (:mod:`urh_tpu_torch.dsp.stream_kernels`): only its packed run bundle comes
-back to the host.  The pipeline is one chunk deep, as urh_tpu's: a chunk
+back to the host, and the chunk's per-sample states only when its runs
+overflow the bundle (a states-only launch on the chunk, kept on the device
+until its bundle is read).  The pipeline is one chunk deep, as urh_tpu's: a chunk
 goes up through a pinned staging buffer, its kernels and the bundle's
 non-blocking readback into a pinned buffer are queued, and the previous
 chunk's bundle is consumed after that, behind its readback's CUDA event.
@@ -32,7 +34,7 @@ from urh_tpu_torch.core.iq import (max_magnitude_for_dtype, normalize_scale_shif
                                    resolve_device)
 from urh_tpu_torch.dsp import costas
 from urh_tpu_torch.dsp.demod import DemodParams, afp_demod_vec, noise_sentinel
-from urh_tpu_torch.dsp.stream_kernels import I8_SCALE, stream_block
+from urh_tpu_torch.dsp.stream_kernels import I8_SCALE, stream_block, stream_states
 from urh_tpu_torch.dsp.symbols import (PAUSE_STATE, _initial_state, _run_length_encode,
                                        _symbol_states_device, get_center_thresholds,
                                        pulse_lens_from_runs, symbol_states)
@@ -226,7 +228,8 @@ class _Pending:
     """A dispatched chunk whose bundle is not consumed yet."""
 
     bundle: object          # device or CPU tensor, or the _Slot it comes back through
-    states: torch.Tensor    # per-sample states, read only on overflow
+    block: tuple            # stream_states' arguments (the chunk on the device first),
+                            # launched only on overflow
     cap: int
     state_bits: int
     out_len: int
@@ -377,14 +380,14 @@ class StreamDemodulator:
                 state_bits = rle_state_bits(p.modulation_order)
                 cap = (out_len + halo) // 4 + 8
                 x, slot = self._upload(parts)
-                bundle, states = stream_block(
-                    x, noise_sqrd, max_mag, self._device_thresholds(p.center),
-                    p.modulation, halo, cap, state_bits)
+                block = (x, noise_sqrd, max_mag, self._device_thresholds(p.center),
+                         p.modulation, halo)
+                bundle = stream_block(*block, cap, state_bits)
                 if slot is not None:
                     slot.download(bundle)
                     bundle = slot
                 done = self._pending
-                self._pending = _Pending(bundle, states, cap, state_bits, out_len)
+                self._pending = _Pending(bundle, block, cap, state_bits, out_len)
                 # one-chunk pipeline: consume the PREVIOUS chunk's bundle
                 # so its readback overlaps this chunk's upload + compute.
                 # Adaptive noise must see each chunk's peak before the next
@@ -413,9 +416,9 @@ class StreamDemodulator:
             r_states, r_lens = _clip_runs(r_states, r_lens, done.out_len)
         else:
             # the runs overflowed the bundle (or their lengths would not
-            # fit its packing): the kernel's per-sample states instead
+            # fit its packing): the chunk's per-sample states instead
             FALLBACKS["states"] += 1
-            r_states, r_lens = _rle(done.states.cpu().numpy())
+            r_states, r_lens = _rle(stream_states(*done.block).cpu().numpy())
         self._maybe_adapt_noise(np.asarray(r_states), np.asarray(r_lens), peak)
         self._carry.push(r_states, r_lens)
         return self._finalize(self._carry.close_segments())
@@ -570,7 +573,7 @@ class StreamDemodulator:
         # a copy of its own: the staging slots may hold a chunk in flight
         xc = np.ascontiguousarray(x)
         t_dev = time_of(lambda: stream_block(torch.from_numpy(xc).to(self.device),
-                                             *args)[0].cpu())
+                                             *args).cpu())
         t_host = time_of(lambda: self._host_block(x, None, sentinel))
         self.backend = "host" if t_host < t_dev else "device"
         _BACKEND_VERDICTS[cache_key] = self.backend
