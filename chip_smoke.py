@@ -48,11 +48,32 @@
    launch a chunk; stream segments on the card equal those on the CPU,
    also for a capture whose runs overflow every bundle (the states-only
    launch).
+5. B7, the median filter: against its plain version on the same CUDA
+   tensors at k = 1, 2, 3, 11, 12, 64, 65 and W = 1, k - 1, k, k + 1, 1000
+   and 2^14 + 3, on rows with ties, +-0.0, +-inf and NaN, and at the main
+   path's shapes (2 x 100 rows of 16,368 and 2 x 24 of 65,520): every
+   word equal; timed at 2 x 100 x 16,368 and at 2^25 cells beside its
+   bound, its plain version and unfold().median().
+6. Main path, estimation: ``urh_tpu_torch.estimate`` and
+   ``Signal.auto_detect`` on the default device for the 2^24-sample FSK and
+   ASK captures (float32, int8), the 2^22-sample BPSK capture and
+   bench.py's estimate capture (24 messages of 800 bits, about 2.9 M
+   samples): each estimated as made (modulation, 100 samples a bit), B7
+   launched once a width bucket, the Costas loop once for PSK; then
+   ``demodulate()`` at the estimated parameters decodes every FSK message
+   bit-exactly (the exact messages of the others are counted).  The same
+   captures cut short give the same estimate and decisions on the card and
+   on the CPU.
+7. TX: ``Modulator.modulate`` for ASK, FSK, GFSK, PSK and OQPSK, 1 and 2
+   bits a symbol, float32/int8/int16, at a 2^21-sample body, on the card
+   against the CPU (float32 within 4 ulps of the amplitude, integers
+   within 1), and a 2^24-sample FSK capture synthesized on the card,
+   estimated and decoded back to its bits; the synthesis rate printed.
 
 Every failed check raises.  The last three lines are a JSON ``kernels``
 summary, the card's name and power limit, and ``{"ok": true, "device":
-{...}}``; the line before them has the offline PSK wall time and the
-stream's samples per second.  Without a CUDA card the
+{...}}``; the two lines before them have the offline PSK wall time, the
+stream's samples per second, the estimate() walls and the TX rate.  Without a CUDA card the
 script exits non-zero before it prints any result.
 """
 
@@ -294,22 +315,23 @@ def stream_phase(device):
 
 
 def make_capture(kind: str, n: int, seed: int, sps: int = 100, n_bits: int = 256,
-                 pause: int = 20000):
-    """Synthetic float32 (n, 2) capture: [pause, message] * k + trailing
-    pause, messages of n_bits random bits at sps samples per bit, amplitude
-    0.75 plus Gaussian noise of sigma 0.01.  FSK is continuous-phase at
+                 pause: int = 20000, lead: int = 0):
+    """Synthetic float32 (n, 2) capture: ``lead`` silent samples, [pause,
+    message] * k + trailing pause, messages of n_bits random bits at sps
+    samples per bit, amplitude 0.75 plus Gaussian noise of sigma 0.01.  FSK is continuous-phase at
     +-25 kHz of 1 Msps; ASK is on/off keying of a 10 kHz tone, every
     message starting and ending with a 1 (an ASK zero is silence)."""
     rng = np.random.default_rng(seed)
     period = pause + n_bits * sps
-    n_msgs = n // period
+    n_msgs = (n - lead) // period
     bits = rng.integers(0, 2, (n_msgs, n_bits), dtype=np.uint8)
     if kind == "ASK":
         bits[:, 0] = bits[:, -1] = 1
     sym = np.zeros((n_msgs, pause + n_bits * sps), dtype=np.int8)  # -1 silent
     sym[:, :pause] = -1
     sym[:, pause:] = np.repeat(bits, sps, axis=1)
-    sym = np.concatenate((sym.ravel(), np.full(n - n_msgs * period, -1, np.int8)))
+    sym = np.concatenate((np.full(lead, -1, np.int8), sym.ravel(),
+                          np.full(n - lead - n_msgs * period, -1, np.int8)))
     on = sym >= 0
     if kind == "FSK":
         step = np.where(sym == 1, 1.0, -1.0) * (2 * np.pi * 25e3 / 1e6)
@@ -323,6 +345,23 @@ def make_capture(kind: str, n: int, seed: int, sps: int = 100, n_bits: int = 256
     iq[:, 1] = amp * np.sin(phase)
     iq += rng.normal(0, 0.01, (n, 2)).astype(np.float32)
     return iq, bits
+
+
+def make_estimate_capture(n_msgs: int = 24, n_bits: int = 800, device=None):
+    """bench.py's estimate capture (bench_estimate), synthesized by the
+    port's modulate on ``device``: n_msgs messages of the bits 10110010
+    repeated to n_bits, 100 samples a bit, FSK at +-20 kHz of 1 Msps around
+    a carrier of 0 Hz, each followed by a 40,000-sample pause, plus
+    Gaussian noise of sigma 0.01 (seed 7): about 2.9 M samples at full
+    size.  -> (float32 (n, 2) capture, the (n_msgs, n_bits) bits)."""
+    from urh_tpu_torch.dsp.modulate import modulate
+
+    bits = np.resize(np.array([1, 0, 1, 1, 0, 0, 1, 0], np.uint8), n_bits)
+    message = modulate(bits, 100, "fsk", [-20e3, 20e3], carrier_frequency=0.0,
+                       sample_rate=1e6, pause=40_000, device=device)
+    capture = np.tile(message, (n_msgs, 1))
+    capture += np.random.default_rng(7).normal(0, 0.01, capture.shape).astype(np.float32)
+    return capture, np.tile(bits, (n_msgs, 1))
 
 
 def demod_params(kind: str, dtype):
@@ -750,18 +789,20 @@ def b6_phase(device, sizes=B6_SIZES, chunk=STREAM_CHUNK, full=N_FULL, large=B6_L
 
 
 def make_psk_capture(n: int, seed: int, sps: int = 100, n_bits: int = 256,
-                     pause: int = 20000, lock_in: int = 2000):
-    """Synthetic float32 BPSK capture: a lock-in burst of lock_in samples
-    of the carrier (the loop starts off frequency and needs a few symbols
-    to lock; the burst decodes as a first message of ones), a pause, then
-    [message, pause] * k.  A 40 kHz carrier at 1 Msps, bit 1 at phase pi
-    (which the loop locks to as state 1), every message opening with a 1;
-    every length is a whole number of carrier periods (25 samples), so the
-    loop, frozen through a pause, re-enters in phase.  Amplitude 0.75,
-    Gaussian noise of sigma 0.01."""
+                     pause: int = 20000, lock_in: int = 2000, silence: int = 0):
+    """Synthetic float32 BPSK capture: ``silence`` silent samples, a lock-in
+    burst of lock_in samples of the carrier (the loop starts off frequency
+    and needs a few symbols to lock; the burst decodes as a first message
+    of ones), a pause, then [message, pause] * k.  A 40 kHz carrier at 1
+    Msps, bit 1 at phase pi (which the loop locks to as state 1), every
+    message opening with a 1; every length after the silence is a whole
+    number of carrier periods (25 samples), so the loop, frozen through a
+    pause, re-enters in phase.  Amplitude 0.75, Gaussian noise of sigma
+    0.01."""
     rng = np.random.default_rng(seed)
     period = pause + n_bits * sps
-    lead = np.concatenate((np.ones(lock_in, np.int8), np.full(pause, -1, np.int8)))
+    lead = np.concatenate((np.full(silence, -1, np.int8), np.ones(lock_in, np.int8),
+                           np.full(pause, -1, np.int8)))
     n_msgs = (n - len(lead)) // period
     bits = rng.integers(0, 2, (n_msgs, n_bits), dtype=np.uint8)
     bits[:, 0] = 1
@@ -991,6 +1032,330 @@ def stream_card_vs_cpu_phase(n: int = 200000, chunk: int = 1 << 14):
           "ASK float32/int8 through the states-only launch", flush=True)
 
 
+# -- B7 (median filter), estimate() and TX ------------------------------------
+
+B7_K = 11  # estimate's _MEDIAN_ORDER
+B7_KS = (1, 2, 3, 11, 12, 64, 65)
+B7_ROWS = 3
+# the main path's buckets, both magnitudes stacked: 2 x 100 rows of 16,384 -
+# 16 (the 2^24-sample FSK capture's 25,600-sample messages) and 2 x 24 of
+# 65,536 - 16 (the estimate capture's 80,000-sample messages)
+B7_MAIN_SHAPES = ((200, 16368), (48, 65520))
+B7_LARGE = (2048, 16384)  # 2^25 cells
+B7_PLAIN_RUNS = 5  # the plain version sorts k copies of every cell
+B7_SOURCE = "urh_tpu_torch/csrc/median_filter.cu"
+B7_REPLACES = "urh_tpu/ai/device.py:141"
+B7_LEVELS = np.array([-0.0, 0.0, 1.0, -1.0, 0.5, 2.0, np.inf, -np.inf], np.float32)
+
+EST_MSGS, EST_BITS = 24, 800  # bench.py's estimate capture
+CENTER_ATOL = 1e-6  # estimate() card against CPU: atan2 rounds differently
+TX_BODY = 1 << 21  # urh_tpu's DEVICE_MIN_BODY_SAMPLES
+TX_FLOAT_ULPS = 4  # card against CPU: their cosf/sinf, a few ulps apart
+# (type, bits a symbol, Modulator parameters: % / Hz / degrees)
+TX_CASES = (("ASK", 1, [20.0, 100.0]), ("ASK", 2, [0.0, 30.0, 60.0, 100.0]),
+            ("FSK", 1, [-20e3, 20e3]), ("FSK", 2, [-30e3, -10e3, 10e3, 30e3]),
+            ("GFSK", 1, [-20e3, 20e3]), ("GFSK", 2, [-30e3, -10e3, 10e3, 30e3]),
+            ("PSK", 1, [-90.0, 90.0]), ("PSK", 2, [-135.0, -45.0, 45.0, 135.0]),
+            ("OQPSK", 2, [-135.0, -45.0, 45.0, 135.0]))
+TX_DTYPES = {"float32": (np.float32, 1.0), "int8": (np.int8, 127.0),
+             "int16": (np.int16, 32767.0)}
+
+
+def b7_rows(rows: int, w: int, seed: int, nan: bool = False) -> np.ndarray:
+    """rows x w float32: quantized rows (ties, +-0, +-inf), Gaussian rows,
+    and with ``nan`` a row of NaN stretches."""
+    rng = np.random.default_rng(seed)
+    out = np.concatenate((rng.choice(B7_LEVELS, (rows, w)),
+                          rng.normal(size=(rows, w)).astype(np.float32)))
+    if nan:
+        out[0, ::7] = np.nan
+        out[1, w // 3:w // 3 + 40] = np.nan
+    return out
+
+
+def b7_compare(got: torch.Tensor, want: torch.Tensor) -> tuple[float, int]:
+    """-> (max abs error over the finite pairs, mismatching words)."""
+    bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    finite = torch.isfinite(got) & torch.isfinite(want)
+    err = (got - want).abs()[finite].max().item() if bool(finite.any()) else 0.0
+    return err, bad
+
+
+def b7_bound(shape, k: int) -> tuple[float, str]:
+    """Bytes: each float32 read once and each output written once; ops: a
+    selection's kk - 1 comparisons an output (kk the window, shrunk at the
+    row's end), at the float32 rate.  -> (ms, bound_by)."""
+    rows, w = shape
+    kk = np.minimum(k, w - np.arange(w))
+    byte_ms = 8 * rows * w / HBM_BYTES_PER_S * 1e3
+    op_ms = rows * float((kk - 1).sum()) / FP32_OPS_PER_S * 1e3
+    return max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else "operations"
+
+
+def b7_phase(device, ks=B7_KS, main_shapes=B7_MAIN_SHAPES, large=B7_LARGE,
+             runs: int = TIMED_RUNS, plain_runs: int = B7_PLAIN_RUNS) -> dict:
+    """B7 against its plain version on the same tensors, to the bit: every
+    k of ks at W = 1, k - 1, k, k + 1, 1000 and 2^14 + 3 on quantized,
+    Gaussian and NaN rows, and at the main path's shapes; kernel, plain
+    version and the library's unfold().median() (odd k, full windows only:
+    the nearest single PyTorch call) timed at the first main shape and at
+    ``large``."""
+    from urh_tpu_torch.ai import median_kernels as mk
+
+    err, mismatch, cases = 0.0, 0, 0
+    for k in ks:
+        for w in sorted({1, k - 1, k, k + 1, 1000, (1 << 14) + 3} - {0}):
+            rows = torch.from_numpy(b7_rows(B7_ROWS, w, seed=k * 7919 + w, nan=w > 2)).to(device)
+            got = mk.median_filter(rows, k)
+            torch.cuda.synchronize()  # a fault in the kernel shows here
+            e, bad = b7_compare(got, mk.median_filter_plain(rows, k))
+            err, mismatch, cases = max(err, e), mismatch + bad, cases + 1
+    for i, shape in enumerate(main_shapes):
+        rows = torch.from_numpy(np.abs(b7_rows(shape[0] // 2, shape[1], seed=i))).to(device)
+        got = mk.median_filter(rows, B7_K)
+        torch.cuda.synchronize()
+        e, bad = b7_compare(got, mk.median_filter_plain(rows, B7_K))
+        err, mismatch, cases = max(err, e), mismatch + bad, cases + 1
+    print(f"median filter: {cases} cases (k {ks}, the main path's shapes {main_shapes}): "
+          f"max_abs_err {err}, mismatching words {mismatch}", flush=True)
+    if err or mismatch:
+        raise AssertionError(f"median filter: max_abs_err {err}, {mismatch} mismatching words")
+
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=device)
+    timings = {}
+    for shape in (main_shapes[0], large):
+        rows = torch.from_numpy(np.abs(np.random.default_rng(1).normal(
+            size=shape)).astype(np.float32)).to(device)
+        timings[shape] = {
+            "ms": time_ms(lambda: mk.median_filter(rows, B7_K), flush, runs),
+            "plain_ms": time_ms(lambda: mk.median_filter_plain(rows, B7_K), flush,
+                                plain_runs, warmup=1),
+            "library_ms": time_ms(lambda: rows.unfold(-1, B7_K, 1).median(-1).values, flush,
+                                  runs),
+        }
+        bound, by = b7_bound(shape, B7_K)
+        print(f"median filter {shape[0]} x {shape[1]}, k={B7_K}: {timings[shape]} "
+              f"(bound {bound} ms, {by})", flush=True)
+        del rows
+    return {"err": err, "mismatch": mismatch, "timings": timings}
+
+
+def quiet_lead(n: int) -> int:
+    """Silent samples ahead of an estimated n-sample capture: the noise
+    floor is read off the quietest 1% rows of a capture (the first row
+    starting at n % (n // 100)), so two whole rows of silence ending on a
+    row boundary, where the first signal then starts a row.  (The captures'
+    own pauses are shorter than a row.)"""
+    row = max(1, n // 100)
+    return 2 * row + n % row
+
+
+def estimate_captures(n: int, psk: dict, est_msgs: int = EST_MSGS, est_bits: int = EST_BITS,
+                      device=None):
+    """(label, capture, sent bits, modulation, kernel of the demodulation
+    after it) for the n-sample FSK and ASK captures (float32, int8), the
+    BPSK capture (make_psk_capture's arguments in ``psk``) and bench.py's
+    estimate capture (synthesized by the port on ``device``).  The FSK,
+    ASK and BPSK captures open with quiet_lead samples of silence."""
+    out = []
+    for kind, seed in (("FSK", 11), ("ASK", 12)):
+        iq, bits = make_capture(kind, n, seed, lead=quiet_lead(n))
+        key = kind.lower() + "_{}"
+        out += [(f"{kind} float32", iq, bits, kind, key.format("f32")),
+                (f"{kind} int8", to_int8(iq), bits, kind, key.format("i8"))]
+    iq, bits = make_psk_capture(**psk, silence=quiet_lead(psk["n"]))
+    out.append(("PSK float32", iq, bits, "PSK", "costas_f32"))
+    iq, bits = make_estimate_capture(est_msgs, est_bits, device=device)
+    out.append(("estimate capture", iq, bits, "FSK", "fsk_f32"))
+    return out
+
+
+def reset_launches():
+    from urh_tpu_torch.ai import median_kernels as mk
+    from urh_tpu_torch.dsp import costas
+    from urh_tpu_torch.dsp import fused_kernels as fk
+
+    for counts in (mk.LAUNCHES, fk.LAUNCHES, costas.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+def read_launches() -> dict:
+    from urh_tpu_torch.ai import median_kernels as mk
+    from urh_tpu_torch.dsp import costas
+    from urh_tpu_torch.dsp import fused_kernels as fk
+
+    return {**mk.LAUNCHES, **fk.LAUNCHES, **costas.LAUNCHES}
+
+
+def width_buckets(iq: np.ndarray) -> int:
+    """The width buckets estimate() classifies iq in: one B7 launch each."""
+    from urh_tpu_torch import IQData
+    from urh_tpu_torch.ai import estimate as est
+    from urh_tpu_torch.ai import segmentation
+
+    data = IQData(iq)
+    mags = data.magnitudes
+    segments = segmentation.segment_messages_from_magnitudes(
+        mags, segmentation.detect_noise_level(mags))
+    _, staged, uploaded = est.bucket_segments(data, segments[:est._MAX_CLASSIFIED_MESSAGES],
+                                              staged=True)
+    return len(staged) + len(uploaded)
+
+
+def count_exact(bit_lists, bits) -> int:
+    sent = {np.asarray(b, np.uint8).tobytes() for b in bits}
+    return sum(np.frombuffer(bytes(got), np.uint8).tobytes() in sent for got in bit_lists)
+
+
+def estimate_phase(device, n: int = N_FULL, psk_n: int = B5_TIMED_N,
+                   est_msgs: int = EST_MSGS, est_bits: int = EST_BITS) -> dict:
+    """estimate() and Signal.auto_detect() on every capture, each run with
+    the launch counts set to 0 just before and read just after: the
+    capture's modulation and bit length, B7 launched once a width bucket,
+    the Costas loop once for PSK; then demodulate() with the detected
+    parameters, through the capture's kernel: every FSK message bit-exact,
+    the exact messages counted for the others.  -> B7 launches and walls."""
+    import urh_tpu_torch as ut
+
+    launches, walls = 0, {}
+    for label, iq, bits, kind, key in estimate_captures(n, dict(n=psk_n, seed=13), est_msgs,
+                                                        est_bits, device):
+        buckets = width_buckets(iq)
+        reset_launches()
+        t0 = time.perf_counter()
+        found = ut.estimate(iq, device=device)
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+        sig = ut.Signal.from_iq(iq, device=device)
+        reset_launches()
+        t0 = time.perf_counter()
+        detected = sig.auto_detect(detect_noise=True)
+        auto_wall = time.perf_counter() - t0
+        auto_counts = read_launches()
+        if found is None or (found["modulation_type"], found["bit_length"]) != (kind, 100):
+            raise AssertionError(f"estimate {label}: {found}, made as {kind} at 100")
+        if not detected or (sig.modulation_type, sig.samples_per_symbol, sig.tolerance,
+                            sig.noise_threshold) != (kind, 100, found["tolerance"],
+                                                     found["noise"]):
+            raise AssertionError(f"auto_detect {label}: {sig.params} against {found}")
+        for what, c in (("estimate", counts), ("auto_detect", auto_counts)):
+            if c["median_filter_f32"] != buckets or (kind == "PSK") != (c["costas_f32"] == 1):
+                raise AssertionError(f"{what} {label}: launches {c}, {buckets} width buckets")
+        launches += counts["median_filter_f32"] + auto_counts["median_filter_f32"]
+        reset_launches()
+        messages = ut.demodulate(sig)
+        if read_launches()[key] == 0:
+            raise AssertionError(f"{label}: demodulate() did not launch {key}")
+        bit_lists = [m.plain_bits for m in messages]
+        if kind == "FSK" and label != "estimate capture":
+            check_bits(bit_lists, bits, f"{label} at the estimated parameters")
+        walls[label] = (wall, auto_wall)
+        print(f"estimate {label} ({len(iq)} samples): {found}; estimate() wall {wall} s, "
+              f"auto_detect() wall {auto_wall} s; median filter launches {buckets} a call "
+              f"({buckets} width buckets); demodulate() at the estimated parameters: "
+              f"{count_exact(bit_lists, bits)} of {len(bits)} messages exact, "
+              f"{len(messages)} messages", flush=True)
+    return {"launches": launches, "walls": walls}
+
+
+def estimate_card_vs_cpu_phase(n: int = 200_000, psk_n: int = 20_000):
+    """estimate() on the card and on the CPU (plain versions) on the
+    captures cut short: the same modulation, bit length, tolerance and
+    noise, the center within CENTER_ATOL, and the same decision for every
+    classified message of every width bucket."""
+    import urh_tpu_torch as ut
+    from urh_tpu_torch.ai import estimate as est
+    from urh_tpu_torch.ai import segmentation
+
+    psk = dict(n=psk_n, seed=43, n_bits=16, pause=2000, lock_in=1000)
+    for label, iq, *_ in estimate_captures(n, psk, 2, EST_BITS, "cuda"):
+        card, cpu = ut.estimate(iq, device="cuda"), ut.estimate(iq, device="cpu")
+        same = (card is not None and cpu is not None
+                and all(card[k] == cpu[k] for k in ("modulation_type", "bit_length",
+                                                    "tolerance", "noise"))
+                and abs(card["center"] - cpu["center"]) <= CENTER_ATOL)
+        data = ut.IQData(iq)
+        mags = data.magnitudes
+        segments = segmentation.segment_messages_from_magnitudes(
+            mags, segmentation.detect_noise_level(mags))[:est._MAX_CLASSIFIED_MESSAGES]
+        decisions = [est.classify_messages(data, segments, staged=data.staged_planes(dev))
+                     for dev in ("cuda", "cpu")]
+        if not same or decisions[0] != decisions[1]:
+            raise AssertionError(f"estimate {label}: card {card} {decisions[0]}, "
+                                 f"CPU {cpu} {decisions[1]}")
+        print(f"estimate card vs CPU, {label} ({len(iq)} samples): {card}; "
+              f"{len(segments)} decisions equal", flush=True)
+
+
+def tx_modulator(mt: str, bps: int, params):
+    from urh_tpu_torch import Modulator
+
+    m = Modulator(f"{mt} {bps}")
+    m.modulation_type = mt
+    m.bits_per_symbol = bps
+    m.samples_per_symbol = 100
+    m.carrier_freq_hz = 30e3
+    m.carrier_phase_deg = 20
+    m.parameters = params
+    return m
+
+
+def tx_phase(device, n_body: int = TX_BODY, n_capture: int = N_FULL) -> dict:
+    """Modulator.modulate for every type, bits a symbol and output type at a
+    body of n_body samples, on the card against the port on the CPU: float32
+    within TX_FLOAT_ULPS ulps of the amplitude, int8/int16 within 1 (the
+    truncation of a value on an integer boundary), those samples counted.
+    Then an n_capture-sample FSK capture synthesized on the card goes
+    through estimate() and demodulate() back to its bits.  -> the
+    synthesis rate (samples/s, host clock) by case."""
+    import urh_tpu_torch as ut
+
+    rng = np.random.default_rng(17)
+    rates = {}
+    for mt, bps, params in TX_CASES:
+        bits = "".join(map(str, rng.integers(0, 2, bps * (n_body // 100))))
+        m = tx_modulator(mt, bps, params)
+        for name, (dtype, amplitude) in TX_DTYPES.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card = m.modulate(bits, pause=1000, start=5, dtype=dtype, device=device).data
+            wall = time.perf_counter() - t0
+            cpu = m.modulate(bits, pause=1000, start=5, dtype=dtype, device="cpu").data
+            diff = np.abs(card.astype(np.float64) - cpu)
+            limit = (TX_FLOAT_ULPS * float(np.finfo(np.float32).eps) * amplitude
+                     if dtype == np.float32 else 1)
+            if card.shape != cpu.shape or diff.max() > limit:
+                raise AssertionError(f"TX {mt} {bps} {name}: card and CPU differ by "
+                                     f"{diff.max()} (limit {limit})")
+            rates[(mt, bps, name)] = len(card) / wall
+            print(f"TX {mt} {bps} bit(s) a symbol {name}: {len(card)} samples, max diff "
+                  f"{diff.max()} (limit {limit}), {int((diff > 0).sum())} values differ; "
+                  f"{rates[(mt, bps, name)]} samples/s on {device or 'the card'}", flush=True)
+
+    # an FSK capture made by the port on the card (silence, then [message,
+    # pause] * k), estimated and decoded back
+    period, lead = 20000 + 256 * 100, quiet_lead(n_capture)
+    sent = rng.integers(0, 2, ((n_capture - lead) // period, 256), dtype=np.uint8)
+    sent[:, 0] = 1
+    fsk = tx_modulator("FSK", 1, [-25e3, 25e3])
+    fsk.carrier_freq_hz = 0.0
+    t0 = time.perf_counter()
+    parts = [fsk.modulate(b, pause=20000, device=device).data for b in sent]
+    wall = time.perf_counter() - t0
+    iq = np.concatenate([np.zeros((lead, 2), np.float32)] + parts + [
+        np.zeros((n_capture - lead - len(sent) * period, 2), np.float32)])
+    iq += rng.normal(0, 0.01, iq.shape).astype(np.float32)
+    sig = ut.Signal.from_iq(iq, device=device)
+    if not sig.auto_detect(detect_noise=True) or sig.modulation_type != "FSK":
+        raise AssertionError(f"TX capture: estimated {sig.params}")
+    check_bits([m.plain_bits for m in ut.demodulate(sig)], sent, "TX FSK capture")
+    print(f"TX FSK capture of {len(iq)} samples ({len(sent)} messages, synthesized in "
+          f"{wall} s, {len(iq) / wall} samples/s): estimated {sig.params}, every message "
+          f"bit-exact", flush=True)
+    return rates
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
@@ -1002,10 +1367,14 @@ def main():
     identity = card_identity()
     clock = sm_clock_hz()
 
+    def elapsed(after: str):
+        print(f"elapsed after {after}: {time.perf_counter() - t0:.1f} s", flush=True)
+
     kernels = kernel_phase("cuda")
     stream_phase("cuda")
     b5 = b5_phase("cuda")
     b6 = b6_phase("cuda")
+    elapsed("the kernel phases")
     launches, _ = main_path_phase(None, N_FULL)  # None: the default device
     card_vs_cpu_phase()
     launches["costas_f32"], psk_wall, offline, psk_iq, psk_bits = psk_main_path_phase(
@@ -1015,6 +1384,13 @@ def main():
     stream_layers_phase("cuda", N_FULL)
     launches["costas_f32"] += psk_stream_phase(None, psk_iq, psk_bits, offline)
     stream_card_vs_cpu_phase()
+    elapsed("the demodulation and stream paths")
+    b7 = b7_phase("cuda")
+    estimated = estimate_phase(None)  # None: the default device
+    estimate_card_vs_cpu_phase()
+    elapsed("B7 and the estimation path")
+    tx_rates = tx_phase(None)
+    elapsed("TX")
 
     rows = []
     for key, k in KERNELS.items():
@@ -1050,6 +1426,19 @@ def main():
             "bound_ms": b6_bytes(N_FULL, ingest_bytes) / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "library_ms": None,
         })
+    main_shape = B7_MAIN_SHAPES[0]
+    bound, bound_by = b7_bound(main_shape, B7_K)
+    large_bound, _ = b7_bound(B7_LARGE, B7_K)
+    rows.append({
+        "name": "median_filter_rows", "route": "cuda", "source": B7_SOURCE,
+        "replaces": B7_REPLACES, "launches": estimated["launches"],
+        "max_abs_err": b7["err"], "mismatching_words": b7["mismatch"],
+        **b7["timings"][main_shape], "rows": main_shape[0], "width": main_shape[1],
+        "k": B7_K, "bound_ms": bound, "bound_by": bound_by,
+        "large_rows": B7_LARGE[0], "large_width": B7_LARGE[1],
+        **{f"large_{key}": v for key, v in b7["timings"][B7_LARGE].items()},
+        "large_bound_ms": large_bound,
+    })
     for row in rows:
         print(f"{row['name']}: {row['ms']:.4f} ms (bound {row['bound_ms']:.4f} ms, "
               f"{row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
@@ -1059,6 +1448,10 @@ def main():
           f"int8 {rates[('int8', 1)]}, {rates[('int8', 2)]} ({N_FULL} samples in "
           f"{STREAM_CHUNK}-sample chunks) on {identity}, SM clock {clock / 1e6:.0f} MHz",
           flush=True)
+    print("estimate() and auto_detect() walls (s): " + "; ".join(
+        f"{label} {w[0]}, {w[1]}" for label, w in estimated["walls"].items())
+        + f"; TX FSK float32 {tx_rates[('FSK', 1, 'float32')]} samples/s at {TX_BODY} "
+        f"samples on {identity}", flush=True)
     print(json.dumps({"kernels": rows}))
     print(identity)
     print(json.dumps({"ok": True, "device": {

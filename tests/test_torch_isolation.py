@@ -38,6 +38,14 @@ sd = ut.StreamDemodulator(params, device="cpu")
 segments = [s for i in range(0, len(iq), 1000) for s in sd.feed(iq[i:i + 1000])]
 segments += sd.flush()
 assert len(segments) == 1 and segments[0].ppseq[0, 0] != -1, segments
+modulator = ut.Modulator()
+modulator.modulation_type = "FSK"
+modulator.parameters = [-20e3, 20e3]
+tx = modulator.modulate("10110010" * 8, pause=3000, device="cpu").data
+tx = np.concatenate([tx] * 4)
+tx = tx + np.random.default_rng(0).normal(0, 0.01, tx.shape).astype(np.float32)
+found = ut.estimate(tx, device="cpu")
+assert (found["modulation_type"], found["bit_length"]) == ("FSK", 100), found
 loaded = [m for m in sys.modules if m == "urh_tpu" or m.startswith("urh_tpu.")]
 assert not loaded, loaded
 print("ok")
@@ -45,8 +53,8 @@ print("ok")
 
 
 def test_demodulates_with_jax_unimportable_and_loads_no_urh_tpu():
-    """Offline demodulate() and a stream, in a process where JAX cannot be
-    imported."""
+    """Offline demodulate(), a stream, Modulator.modulate and estimate(), in
+    a process where JAX cannot be imported."""
     out = subprocess.run([sys.executable, "-c", DEMOD_WITHOUT_JAX], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -86,6 +94,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         urh_tpu_torch.afp_demod(iq, 0.1, "FSK")
     with pytest.raises(RuntimeError, match="CUDA"):
         urh_tpu_torch.StreamDemodulator(urh_tpu_torch.DemodParams())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        urh_tpu_torch.estimate(iq)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        urh_tpu_torch.Modulator().modulate("1010")
     # an explicit device is honoured
     assert Signal.from_iq(iq, device="cpu").device == torch.device("cpu")
 

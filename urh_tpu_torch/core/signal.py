@@ -356,9 +356,26 @@ class Signal:
         return detect_noise_level(self.iq_array.magnitudes)
 
     def auto_detect(self, detect_modulation: bool = True, detect_noise: bool = False) -> bool:
-        raise NotImplementedError(
-            "automatic parameter estimation is not ported yet "
-            "(ROADMAP.md queue A, item A8)")
+        """Estimate the parameters (urh_tpu_torch.ai.estimate) on the
+        signal's device and set them; False when undecidable.  The capture
+        stays staged on the device for the demodulation that follows."""
+        from urh_tpu_torch.ai.estimate import estimate
+
+        kwargs = {}
+        if not detect_noise:
+            kwargs["noise"] = self.params.noise_threshold
+        if not detect_modulation:
+            kwargs["modulation"] = self.params.modulation
+
+        result = estimate(self.iq_array, device=self.device, **kwargs)
+        if result is None:
+            return False
+        self.noise_threshold = result["noise"]
+        self.center = result["center"]
+        self.samples_per_symbol = result["bit_length"]
+        self.tolerance = result["tolerance"]
+        self.modulation_type = result["modulation_type"]
+        return True
 
     # -- editing ops (Signal.py:611-651) ---------------------------------
     def create_new(self, start=0, end=0, new_data=None) -> "Signal":

@@ -489,8 +489,9 @@ class ProtocolAnalyzer:
         root = ET.Element(tag_name)
 
         if modulators is not None:
-            raise NotImplementedError(
-                "modulators need the TX port (ROADMAP.md queue A, item A7)")
+            from urh_tpu_torch.dsp.modulator import Modulator
+
+            root.append(Modulator.modulators_to_xml_tag(modulators))
         root.append(Encoding.decodings_to_xml_tag(decodings))
         root.append(Participant.participants_to_xml_tag(participants))
 

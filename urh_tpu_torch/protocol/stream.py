@@ -598,7 +598,9 @@ class StreamDemodulator:
         for seg in segments:
             a = seg.start_sample - self._qad_abs
             seg_qad = qad[a:a + seg.num_samples]
-            center = detect_center(seg_qad, max_size=150 * p.samples_per_symbol)
+            # the segment's qad is on the host, and so are its states below
+            center = detect_center(seg_qad, max_size=150 * p.samples_per_symbol,
+                                   device="cpu")
             seg.center = p.center if center is None else float(center)
             states = symbol_states(seg_qad, self._thresholds(seg.center),
                                    noise_sentinel(p.modulation)).numpy()

@@ -1,0 +1,44 @@
+"""Reader of the user's settings store (the part of urh_tpu.util.settings
+that the port needs).
+
+The store is urh_tpu's JSON file, ``$XDG_CONFIG_HOME/urh_tpu/settings.json``
+(``~/.config`` without XDG_CONFIG_HOME), so a setting made for urh_tpu, such
+as ``modulation_dtype``, holds for the port too.  The port reads it and
+never writes it.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+_config_dir = os.path.join(
+    os.environ.get("XDG_CONFIG_HOME", os.path.join(os.path.expanduser("~"), ".config")),
+    "urh_tpu",
+)
+_settings_file = os.path.join(_config_dir, "settings.json")
+
+_store = None
+
+
+def _load() -> dict:
+    global _store
+    if _store is None:
+        try:
+            with open(_settings_file) as f:
+                _store = json.load(f)
+        except (OSError, ValueError):
+            _store = {}
+    return _store
+
+
+def read(key, default_value=None, type=str):
+    value = _load().get(key, default_value)
+    if value is None:
+        return None
+    try:
+        if type is bool:
+            return value in (True, "true", "True", 1, "1")
+        return type(value)
+    except (TypeError, ValueError):
+        return default_value
