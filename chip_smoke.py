@@ -48,12 +48,16 @@
    launch a chunk; stream segments on the card equal those on the CPU,
    also for a capture whose runs overflow every bundle (the states-only
    launch).
-5. B7, the median filter: against its plain version on the same CUDA
-   tensors at k = 1, 2, 3, 11, 12, 64, 65 and W = 1, k - 1, k, k + 1, 1000
-   and 2^14 + 3, on rows with ties, +-0.0, +-inf and NaN, and at the main
-   path's shapes (2 x 100 rows of 16,368 and 2 x 24 of 65,520): every
-   word equal; timed at 2 x 100 x 16,368 and at 2^25 cells beside its
-   bound, its plain version and unfold().median().
+5. B7, the median filter: the kernel each k takes (the window kernel up
+   to 16, its outputs a thread and a block, registers; the rank count
+   above), then against its plain version on the same CUDA tensors at k =
+   1, 2, 3, 11, 12, 16, 17, 64, 65 and W = 1, k - 1, k, k + 1, 1000, 2^14 +
+   3, one below, at and past the kernel's run of outputs a thread and its
+   block's tile, on rows with ties, +-0.0, +-inf and NaN, at the main
+   path's shapes (2 x 100 rows of 16,368 and 2 x 24 of 65,520) and on
+   70,000 rows (more than a grid is high): every word equal; timed at 2 x
+   100 x 16,368 and at 2^25 cells beside its bound, its plain version and
+   unfold().median().
 6. Main path, estimation: ``urh_tpu_torch.estimate`` and
    ``Signal.auto_detect`` on the default device for the 2^24-sample FSK and
    ASK captures (float32, int8), the 2^22-sample BPSK capture and
@@ -61,7 +65,8 @@
    samples): each estimated as made (modulation, 100 samples a bit), B7
    launched once a width bucket, the Costas loop once for PSK; then
    ``demodulate()`` at the estimated parameters decodes every FSK message
-   bit-exactly (the exact messages of the others are counted).  The same
+   bit-exactly (the exact messages of the others are counted); the BPSK
+   capture's estimate with 10 more silent samples ahead printed.  The same
    captures cut short give the same estimate and decisions on the card and
    on the CPU.
 7. TX: ``Modulator.modulate`` for ASK, FSK, GFSK, PSK and OQPSK, 1 and 2
@@ -1035,13 +1040,14 @@ def stream_card_vs_cpu_phase(n: int = 200000, chunk: int = 1 << 14):
 # -- B7 (median filter), estimate() and TX ------------------------------------
 
 B7_K = 11  # estimate's _MEDIAN_ORDER
-B7_KS = (1, 2, 3, 11, 12, 64, 65)
+B7_KS = (1, 2, 3, 11, 12, 16, 17, 64, 65)  # 16 the last in registers, 17 the rank count
 B7_ROWS = 3
 # the main path's buckets, both magnitudes stacked: 2 x 100 rows of 16,384 -
 # 16 (the 2^24-sample FSK capture's 25,600-sample messages) and 2 x 24 of
 # 65,536 - 16 (the estimate capture's 80,000-sample messages)
 B7_MAIN_SHAPES = ((200, 16368), (48, 65520))
 B7_LARGE = (2048, 16384)  # 2^25 cells
+B7_TALL = (70000, 7)  # more rows than a grid is high (65,535)
 B7_PLAIN_RUNS = 5  # the plain version sorts k copies of every cell
 B7_SOURCE = "urh_tpu_torch/csrc/median_filter.cu"
 B7_REPLACES = "urh_tpu/ai/device.py:141"
@@ -1092,19 +1098,35 @@ def b7_bound(shape, k: int) -> tuple[float, str]:
     return max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else "operations"
 
 
-def b7_phase(device, ks=B7_KS, main_shapes=B7_MAIN_SHAPES, large=B7_LARGE,
-             runs: int = TIMED_RUNS, plain_runs: int = B7_PLAIN_RUNS) -> dict:
+def b7_widths(k: int, variant: dict) -> list:
+    """W = 1, k - 1, k, k + 1, 1000 and 2^14 + 3, and around the kernel's
+    run of outputs a thread (T - 1, T, T + 1) and its block's tile (one
+    below, at, one past)."""
+    t, tile = variant["outputs"], variant["block_outputs"]
+    return sorted({1, k - 1, k, k + 1, 1000, (1 << 14) + 3, t - 1, t, t + 1, tile - 1, tile,
+                   tile + 1} - {0})
+
+
+def b7_phase(device, ks=B7_KS, main_shapes=B7_MAIN_SHAPES, large=B7_LARGE, tall=B7_TALL,
+             runs: int = TIMED_RUNS, plain_runs: int = B7_PLAIN_RUNS, variant=None) -> dict:
     """B7 against its plain version on the same tensors, to the bit: every
-    k of ks at W = 1, k - 1, k, k + 1, 1000 and 2^14 + 3 on quantized,
-    Gaussian and NaN rows, and at the main path's shapes; kernel, plain
-    version and the library's unfold().median() (odd k, full windows only:
-    the nearest single PyTorch call) timed at the first main shape and at
-    ``large``."""
+    k of ks at b7_widths on quantized, Gaussian and NaN rows, at the main
+    path's shapes and on ``tall`` rows (k = 3 and 11); kernel, plain version
+    and the library's unfold().median() (odd k, full windows only: the
+    nearest single PyTorch call) timed at the first main shape and at
+    ``large``.  ``variant(k)`` is the kernel a window k takes
+    (median_kernels.kernel_variant on the card), printed for each k.
+    -> max-abs error, mismatching words, timings and the k = B7_K variant."""
     from urh_tpu_torch.ai import median_kernels as mk
 
+    variant = variant or mk.kernel_variant
     err, mismatch, cases = 0.0, 0, 0
     for k in ks:
-        for w in sorted({1, k - 1, k, k + 1, 1000, (1 << 14) + 3} - {0}):
+        v = variant(k)
+        print(f"median filter k={k}: {v['variant']} kernel, {v['outputs']} outputs a thread "
+              f"at a time, {v['block_outputs']} a block, {v['registers']} registers and "
+              f"{v['local_bytes']} local bytes a thread", flush=True)
+        for w in b7_widths(k, v):
             rows = torch.from_numpy(b7_rows(B7_ROWS, w, seed=k * 7919 + w, nan=w > 2)).to(device)
             got = mk.median_filter(rows, k)
             torch.cuda.synchronize()  # a fault in the kernel shows here
@@ -1116,8 +1138,15 @@ def b7_phase(device, ks=B7_KS, main_shapes=B7_MAIN_SHAPES, large=B7_LARGE,
         torch.cuda.synchronize()
         e, bad = b7_compare(got, mk.median_filter_plain(rows, B7_K))
         err, mismatch, cases = max(err, e), mismatch + bad, cases + 1
-    print(f"median filter: {cases} cases (k {ks}, the main path's shapes {main_shapes}): "
-          f"max_abs_err {err}, mismatching words {mismatch}", flush=True)
+    rows = torch.from_numpy(b7_rows(tall[0] // 2, tall[1], seed=5)).to(device)
+    for k in (3, B7_K):
+        got = mk.median_filter(rows, k)
+        torch.cuda.synchronize()
+        e, bad = b7_compare(got, mk.median_filter_plain(rows, k))
+        err, mismatch, cases = max(err, e), mismatch + bad, cases + 1
+    print(f"median filter: {cases} cases (k {ks}, the main path's shapes {main_shapes}, "
+          f"{tall[0]} rows of {tall[1]}): max_abs_err {err}, mismatching words {mismatch}",
+          flush=True)
     if err or mismatch:
         raise AssertionError(f"median filter: max_abs_err {err}, {mismatch} mismatching words")
 
@@ -1137,7 +1166,7 @@ def b7_phase(device, ks=B7_KS, main_shapes=B7_MAIN_SHAPES, large=B7_LARGE,
         print(f"median filter {shape[0]} x {shape[1]}, k={B7_K}: {timings[shape]} "
               f"(bound {bound} ms, {by})", flush=True)
         del rows
-    return {"err": err, "mismatch": mismatch, "timings": timings}
+    return {"err": err, "mismatch": mismatch, "timings": timings, "variant": variant(B7_K)}
 
 
 def quiet_lead(n: int) -> int:
@@ -1256,6 +1285,11 @@ def estimate_phase(device, n: int = N_FULL, psk_n: int = B5_TIMED_N,
               f"({buckets} width buckets); demodulate() at the estimated parameters: "
               f"{count_exact(bit_lists, bits)} of {len(bits)} messages exact, "
               f"{len(messages)} messages", flush=True)
+    # ROADMAP.md C1: 10 more silent samples ahead of the BPSK capture move
+    # urh_tpu's own estimate (tolerance 0, not 1); printed, not checked
+    iq, _ = make_psk_capture(psk_n, seed=13, silence=quiet_lead(psk_n) + 10)
+    print(f"estimate PSK float32 with 10 more silent samples ahead ({psk_n} samples): "
+          f"{ut.estimate(iq, device=device)}", flush=True)
     return {"launches": launches, "walls": walls}
 
 
@@ -1437,7 +1471,8 @@ def main():
         "k": B7_K, "bound_ms": bound, "bound_by": bound_by,
         "large_rows": B7_LARGE[0], "large_width": B7_LARGE[1],
         **{f"large_{key}": v for key, v in b7["timings"][B7_LARGE].items()},
-        "large_bound_ms": large_bound,
+        "large_bound_ms": large_bound, "outputs_a_thread": b7["variant"]["outputs"],
+        "registers": b7["variant"]["registers"],
     })
     for row in rows:
         print(f"{row['name']}: {row['ms']:.4f} ms (bound {row['bound_ms']:.4f} ms, "

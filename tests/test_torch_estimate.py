@@ -13,7 +13,8 @@ CPU (the port's plain versions, B7's among them).  Tolerances:
 * estimate(): modulation_type, bit_length and tolerance exact, noise exact
   (host arithmetic on both sides), center within 1e-6 (FSK's discriminator
   is atan2 in XLA against torch's), on captures away from the decision
-  thresholds.
+  thresholds; a BPSK center within 1e-4 (the Costas loop's output, whose
+  sin/cos differ by rounding) where the lead shifts.
 """
 
 import importlib.util
@@ -24,6 +25,7 @@ import pytest
 import torch
 
 import urh_tpu
+import urh_tpu_torch
 from urh_tpu.ai import device as jax_device
 from urh_tpu.ai import estimate as jax_estimate
 from urh_tpu.ai import kernels as jax_kernels
@@ -324,3 +326,66 @@ def test_chip_smoke_captures_are_estimated_as_made():
         want = urh_tpu.estimate(iq)
         assert (want["modulation_type"], want["bit_length"]) == (kind, 100), (name, want)
         _assert_same_estimate(est.estimate(iq, device="cpu"), want)
+
+
+# lead shift -> urh_tpu's own tolerance for chip_smoke.py's BPSK capture cut
+# to 120,000 samples (its center moves too)
+PSK_SHIFT_TOLERANCE = {0: 1, 2: 0, 10: 1, 14: 0}
+# The BPSK center comes from the Costas loop's output, where torch's float32
+# sin/cos and XLA's differ by rounding; test_torch_costas.py holds the two
+# loops to 1e-4, and a center read off the lock-in burst moves with them.
+PSK_CENTER_ATOL = 1e-4
+
+
+@pytest.mark.parametrize("shift", sorted(PSK_SHIFT_TOLERANCE))
+def test_psk_estimate_follows_urh_tpu_across_lead_shifts(shift):
+    """The BPSK estimate's tolerance and center move with a few more silent
+    samples ahead of the capture, in urh_tpu as in the port: the port gives
+    urh_tpu's modulation, bit length, tolerance and noise at each shift, and
+    its center within the Costas loop's tolerance."""
+    cs = _chip_smoke()
+    n = 120_000
+    iq, _ = cs.make_psk_capture(n=n, seed=13, silence=cs.quiet_lead(n) + shift)
+    want = urh_tpu.estimate(iq)
+    assert (want["modulation_type"], want["bit_length"]) == ("PSK", 100)
+    assert want["tolerance"] == PSK_SHIFT_TOLERANCE[shift]
+    got = est.estimate(iq, device="cpu")
+    for key in ("modulation_type", "bit_length", "tolerance", "noise"):
+        assert got[key] == want[key], (key, got, want)
+    assert abs(got["center"] - want["center"]) <= PSK_CENTER_ATOL, (got, want)
+
+
+@pytest.mark.parametrize("shift,tolerance", [(0, 1), (10, 0)])
+def test_urh_tpu_psk_estimate_moves_with_the_lead_at_full_size(shift, tolerance):
+    """chip_smoke.py's 2^22-sample BPSK capture: urh_tpu's own estimate gives
+    tolerance 1, and 0 with 10 more silent samples ahead, as the port does
+    on the card (chip_smoke.py's estimate_phase prints it)."""
+    cs = _chip_smoke()
+    n = 1 << 22
+    iq, _ = cs.make_psk_capture(n=n, seed=13, silence=cs.quiet_lead(n) + shift)
+    want = urh_tpu.estimate(iq)
+    assert (want["modulation_type"], want["bit_length"], want["tolerance"]) == (
+        "PSK", 100, tolerance)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int8], ids=["float32", "int8"])
+def test_ask_messages_at_the_estimated_parameters_equal_urh_tpu(dtype):
+    """chip_smoke.py's ASK capture cut to 2^20 samples, demodulated at the
+    parameters auto_detect finds: the port's messages are urh_tpu's, bit for
+    bit.  Both split messages apart: an ASK zero is silence, and a run of
+    zero bits as long as the pause threshold (8 symbols) ends a message."""
+    cs = _chip_smoke()
+    n = 1 << 20
+    iq, sent = cs.make_capture("ASK", n, 12, lead=cs.quiet_lead(n))
+    if dtype == np.int8:
+        iq = cs.to_int8(iq)
+    want_sig, got_sig = urh_tpu.Signal.from_iq(iq), Signal.from_iq(iq, device="cpu")
+    assert want_sig.auto_detect(detect_noise=True) and got_sig.auto_detect(detect_noise=True)
+    for field in ("modulation", "samples_per_symbol", "tolerance", "noise_threshold",
+                  "pause_threshold"):
+        assert getattr(got_sig.params, field) == getattr(want_sig.params, field), field
+    assert abs(got_sig.center - want_sig.center) <= CENTER_ATOL
+    want = [bytes(m.plain_bits) for m in urh_tpu.demodulate(want_sig)]
+    got = [bytes(m.plain_bits) for m in urh_tpu_torch.demodulate(got_sig)]
+    assert got == want
+    assert len(want) > len(sent)  # urh_tpu's own split

@@ -55,6 +55,8 @@ _STREAM_SIGNATURES = {
                                   _C_INT, _PTR, _PTR]
        for t in ("f32", "i8")},
     "urh_median_filter_f32": [_PTR, _C_INT64, _C_INT64, _C_INT64, _PTR, _PTR],
+    # not a launcher: which kernel a window k takes (and its registers)
+    "urh_median_filter_variant": [_C_INT64, _PTR, _PTR, _PTR, _PTR],
 }
 # the one launcher-side helper that returns a size, not a CUDA error
 _WORK_WORDS = ("urh_stream_block_work_words", [_C_INT64, _C_INT64, _C_INT])

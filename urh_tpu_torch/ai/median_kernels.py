@@ -6,10 +6,12 @@ plus a sort a column for the k - 1 shrunk tail windows).  ``out[r, i]`` is
 the median of ``rows[r, i : min(i + k, W)]``: the value at index ``kk // 2``
 of the window's ``kk`` sorted values, the upper median where ``kk`` is even,
 as urh_tpu takes it.  The kernel (``csrc/median_filter.cu``, selection in
-``csrc/median_filter.cuh``) runs a rank count a window; the plain version
-here sorts the windows.  Both order the values by one total order (-0.0
-below +0.0, NaN last) held by integer keys, so they agree to the bit on
-every input.  ``torch.median`` is no substitute: it takes the lower median
+``csrc/median_filter.cuh``) gives a thread a run of consecutive outputs
+for k up to 16 (the keys their windows share sorted once, each output
+merged from them; a sliding sorted window where the row ends) and runs a
+rank count a window above; the plain version here sorts the windows.  Both
+order the values by one total order (-0.0 below +0.0, NaN last) held by
+integer keys, so they agree to the bit on every input.  ``torch.median`` is no substitute: it takes the lower median
 of an even count and has no shrunk windows.
 
 :func:`median_filter` launches the kernel for a CUDA tensor (counted in
@@ -17,6 +19,8 @@ of an even count and has no shrunk windows.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -70,6 +74,21 @@ def median_filter_plain(rows: torch.Tensor, k: int) -> torch.Tensor:
     place = torch.arange(w, 0, -1, device=rows.device).clamp(max=kk) // 2
     picked = ordered.gather(-1, place.expand(flat.shape[0], w)[..., None])[..., 0]
     return median_values(picked).reshape(rows.shape)
+
+
+def kernel_variant(k: int) -> dict:
+    """The CUDA kernel the window k (already clamped to the row) takes, as
+    the built library reports it: ``variant`` "window" or "rank count",
+    consecutive ``outputs`` a thread takes at a time, ``block_outputs``,
+    and ``registers`` and ``local_bytes`` a thread.  Builds the library
+    (needs the card's toolkit)."""
+    ints = [ctypes.c_int() for _ in range(4)]
+    code = _build.library().urh_median_filter_variant(int(k), *(ctypes.byref(v) for v in ints))
+    if code < 0:
+        raise RuntimeError(f"no kernel attributes for the median filter at k={k}")
+    outputs, block_outputs, registers, local_bytes = (v.value for v in ints)
+    return {"variant": "window" if code else "rank count", "outputs": outputs,
+            "block_outputs": block_outputs, "registers": registers, "local_bytes": local_bytes}
 
 
 def median_filter(rows: torch.Tensor, k: int) -> torch.Tensor:
