@@ -74,11 +74,37 @@
    against the CPU (float32 within 4 ulps of the amplitude, integers
    within 1), and a 2^24-sample FSK capture synthesized on the card,
    estimated and decoded back to its bits; the synthesis rate printed.
+8. B8, the IIR feedback: against its plain loop on the same CUDA tensors
+   for 1, 2, 4, 5, 9 and 40 taps (the register ring holds 8) at n = 1,
+   N + 1, N + 2, 1000, 1023-1025 (its tile) and, up to 9 taps, 2^14, on
+   sums with both planes non-zero, +-0 and a row of +-1e30: every word
+   equal; the chain step's latency measured by clock64; timed at 2^22
+   samples for 1, 4 and 9 taps beside its chain bound, the plain loop at
+   2^14.
+9. Filters, spectrum and plot paths, on the default device:
+   ``Signal.filter_range`` with a 51-tap band-pass over the 2^24-sample
+   FSK captures (float32, int8) with qad cached, then ``demodulate()``
+   from the re-demodulated qad and, with the cache dropped, through K1 /
+   K2 (launched once each): all 367 messages bit-exact both times; the
+   first 2^20 filtered samples equal to the port's on the CPU (float32
+   within 1e-3, int8 within 1); ``iir_filter`` as a DC blocker and a
+   4th-order Butterworth over the capture against scipy's lfilter in
+   float64 (within 1e-3 of max|y|), one B8 launch each;
+   ``Spectrogram(window_size=1024).create_spectrogram_image()`` (32,767
+   frames): dB within 0.05 of the CPU's at or above -100 dB with the same
+   non-finite cells, colour indices within 1 on every cell, the tones'
+   peak bins at +-25 kHz;
+   ``create_path``: 5,000 pixels, min/max equal to the CPU's.
+10. awre: ``FormatFinder.run(10)`` over bench.py's 1,000-message protocol
+   on the card and on the CPU: the same message types, labels and members,
+   the messages unchanged; ``ProtocolAnalyzer.auto_assign_labels()`` on the
+   default device; ``to_pcapng`` written under ``build/``.  Walls printed.
 
 Every failed check raises.  The last three lines are a JSON ``kernels``
 summary, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``; the two lines before them have the offline PSK wall time, the
-stream's samples per second, the estimate() walls and the TX rate.  Without a CUDA card the
+stream's samples per second, the estimate() walls, the TX rate and the
+filter, spectrum, plot path and awre walls.  Without a CUDA card the
 script exits non-zero before it prints any result.
 """
 
@@ -1203,8 +1229,9 @@ def reset_launches():
     from urh_tpu_torch.ai import median_kernels as mk
     from urh_tpu_torch.dsp import costas
     from urh_tpu_torch.dsp import fused_kernels as fk
+    from urh_tpu_torch.dsp import iir_kernels as ik
 
-    for counts in (mk.LAUNCHES, fk.LAUNCHES, costas.LAUNCHES):
+    for counts in (mk.LAUNCHES, fk.LAUNCHES, costas.LAUNCHES, ik.LAUNCHES):
         for key in counts:
             counts[key] = 0
 
@@ -1213,8 +1240,9 @@ def read_launches() -> dict:
     from urh_tpu_torch.ai import median_kernels as mk
     from urh_tpu_torch.dsp import costas
     from urh_tpu_torch.dsp import fused_kernels as fk
+    from urh_tpu_torch.dsp import iir_kernels as ik
 
-    return {**mk.LAUNCHES, **fk.LAUNCHES, **costas.LAUNCHES}
+    return {**mk.LAUNCHES, **fk.LAUNCHES, **costas.LAUNCHES, **ik.LAUNCHES}
 
 
 def width_buckets(iq: np.ndarray) -> int:
@@ -1390,6 +1418,329 @@ def tx_phase(device, n_body: int = TX_BODY, n_capture: int = N_FULL) -> dict:
     return rates
 
 
+# -- B8 (IIR feedback), filters, spectrum, plot paths and awre -----------------
+
+B8_NS = (1, 2, 4, 5, 9, 40)  # feedback taps: the register ring up to 8, then shared memory
+B8_FULL_NS = (1, 2, 4, 9)  # the ones checked up to B8_PLAIN_N (the plain loop is slow)
+B8_TIMED_N = 1 << 22
+B8_TIMED_TAPS = 4  # a 4th-order Butterworth's feedback
+B8_TIMED_RUNS = 3  # one launch at 2^22 takes tens of milliseconds
+B8_PLAIN_N = 1 << 14
+B8_BYTES_PER_SAMPLE = 8 + 8
+B8_SOURCE = "urh_tpu_torch/csrc/iir_feedback.cu"
+B8_REPLACES = "urh_tpu/dsp/filters.py:115"
+BANDPASS = (-0.05, 0.05, 0.08)  # f_low, f_high, bandwidth: a 51-tap band-pass
+FIR_ATOL = 1e-3  # the card's torch.fft against the CPU's, unit-scale samples
+IIR_RTOL = 1e-3  # of max|y|: float32 recursion against lfilter in float64
+DB_ATOL = 0.05
+# below this power (dB) float32 FFT rounding, some 1e-8 of a unit-scale
+# frame's amplitude, is a sizeable part of a bin's magnitude: on the FSK
+# capture the port's CPU STFT against float64 stays within 0.013 dB above
+# it and reaches 0.13 dB below it, and the card against the CPU within
+# 0.05 dB above -110 dB (0.049) and 0.66 below.  40 dB under the
+# colormap's floor; 99.9% of the capture's cells lie above it.
+DB_FLOOR = -100.0
+FSK_TONE_HZ = 25e3
+AWRE_MESSAGES = 1000  # bench.py's awre protocol
+
+
+def b8_inputs(n: int, n_taps: int, seed: int):
+    """(n, 2) interleaved complex feed-forward sums, both planes non-zero,
+    with a stretch of +-0 and a row of large amplitude, and stable taps of
+    both signs (b reversed), on the host."""
+    rng = np.random.default_rng(seed)
+    ff = rng.normal(size=(n, 2)).astype(np.float32)
+    ff[100:140] = np.where(rng.integers(0, 2, (40, 2)) == 1, 0.0, -0.0)
+    ff[300:305] = rng.choice([-1e30, 1e30], size=(5, 2))
+    taps = (rng.uniform(-0.9, 0.9, n_taps) / max(n_taps, 1)).astype(np.float32)
+    return ff, taps
+
+
+def b8_bound_ms(n: int, chain_cycles: float, clock_hz: float) -> tuple[float, str]:
+    """The larger of the loop-carried chain (n steps of chain_cycles SM
+    cycles at the maximum clock) and the bytes (each read and written once)."""
+    chain_ms = n * chain_cycles / clock_hz * 1e3
+    byte_ms = n * B8_BYTES_PER_SAMPLE / HBM_BYTES_PER_S * 1e3
+    return max(chain_ms, byte_ms), "chain" if chain_ms >= byte_ms else "bytes"
+
+
+def b8_phase(device, ns=B8_NS, full_ns=B8_FULL_NS, plain_n=B8_PLAIN_N,
+             timed_n=B8_TIMED_N) -> dict:
+    """B8 against its plain loop on the same CUDA tensors, every word: for
+    each tap count, one plain run over the longest input and a kernel
+    launch at each length n = 1, N + 1, N + 2 (where iir_filter's start
+    falls), 1000 and around its 1,024-sample tile, and for full_ns also 2^14
+    (the first n outputs of the plain run are those of the first n samples);
+    the chain's latency measured (iir_kernels.chain_cycles); the kernel
+    timed at timed_n (3 runs after 1) for several tap counts, the plain loop
+    at plain_n (1 run)."""
+    from urh_tpu_torch.dsp import iir_kernels as ik
+
+    err, mismatch, cases = 0.0, 0, 0
+    for n_taps in ns:
+        sizes = sorted({1, n_taps + 1, n_taps + 2, 1000, 1023, 1024, 1025}
+                       | ({plain_n} if n_taps in full_ns else set()))
+        ff, taps = b8_inputs(max(sizes), n_taps, seed=n_taps)
+        x = torch.from_numpy(ff).to(device)
+        b_rev = torch.from_numpy(taps).to(device)
+        want = ik.iir_feedback_plain(x, b_rev)
+        for n in sizes:
+            got = ik.iir_feedback(x[:n].clone(), b_rev)
+            torch.cuda.synchronize()  # a fault in the kernel shows here
+            bad = int((got.view(torch.int32) != want[:n].view(torch.int32)).sum())
+            finite = torch.isfinite(got) & torch.isfinite(want[:n])
+            e = (got - want[:n]).abs()[finite].max().item() if bool(finite.any()) else 0.0
+            err, mismatch, cases = max(err, e), mismatch + bad, cases + 1
+        print(f"iir feedback N={n_taps}: n {sizes}: max_abs_err {err}, mismatching words "
+              f"{mismatch}", flush=True)
+    if err or mismatch:
+        raise AssertionError(f"iir feedback: max_abs_err {err}, {mismatch} mismatching words")
+
+    cycles = ik.chain_cycles(device)
+    ms = {}
+    for n_taps in (1, B8_TIMED_TAPS, 9):
+        ff, taps = b8_inputs(timed_n, n_taps, seed=n_taps)
+        x = torch.from_numpy(ff).to(device)
+        b_rev = torch.from_numpy(taps).to(device)
+        ms[n_taps] = time_ms(lambda: ik.iir_feedback(x, b_rev), runs=B8_TIMED_RUNS, warmup=1)
+    ff, taps = b8_inputs(plain_n, B8_TIMED_TAPS, seed=B8_TIMED_TAPS)
+    x = torch.from_numpy(ff).to(device)
+    b_rev = torch.from_numpy(taps).to(device)
+    plain_ms = time_ms(lambda: ik.iir_feedback_plain(x, b_rev), runs=1, warmup=0)
+    print(f"iir feedback: {cases} cases equal; chain step {cycles} SM cycles (FMUL + 2 FADD, "
+          f"clock64); timed at n={timed_n}: {ms} ms by tap count (median of "
+          f"{B8_TIMED_RUNS} after 1), plain {plain_ms} ms at n={plain_n}, "
+          f"N={B8_TIMED_TAPS} (1 run)", flush=True)
+    return {"err": err, "mismatch": mismatch, "cycles": cycles, "ms": ms, "plain_ms": plain_ms}
+
+
+def check_filtered(card: np.ndarray, cpu: np.ndarray, label: str):
+    """Filtered samples of the card against the port's on the CPU: float32
+    within FIR_ATOL, int8 within 1 (a value on an integer boundary may
+    truncate either way)."""
+    diff = np.abs(card.astype(np.float64) - cpu)
+    limit = 1 if card.dtype == np.int8 else FIR_ATOL
+    print(f"filter_range {label}: card against CPU max diff {diff.max()} (limit {limit}) "
+          f"over {len(card)} samples", flush=True)
+    if diff.max() > limit:
+        raise AssertionError(f"filter_range {label}: card and CPU differ by {diff.max()}")
+
+
+def filter_range_phase(device, n: int, cpu_n: int = 1 << 20) -> dict:
+    """Signal.filter_range with the 51-tap band-pass over each FSK capture
+    (float32, int8) with qad cached, on the default device: demodulate()
+    from the re-demodulated qad, then with the cache dropped through the
+    capture's kernel (K1, K2), every message bit-exact both times; the
+    first cpu_n filtered samples against the port's filter_range on the CPU
+    over that cut (a causal filter: the cut's outputs are the capture's).
+    -> walls (s) and the float32 capture as it was made (complex64)."""
+    import urh_tpu_torch as ut
+    from urh_tpu_torch.dsp import fused_kernels as fk
+    from urh_tpu_torch.dsp.filters import Filter
+
+    fir = Filter(Filter.design_windowed_sinc_bandpass(*BANDPASS))
+    iq, bits = make_capture("FSK", n, 11)
+    walls = {}
+    for dtype, capture, key in (("float32", iq, "fsk_f32"), ("int8", to_int8(iq), "fsk_i8")):
+        params = demod_params("FSK", capture.dtype)
+        sig = ut.Signal.from_iq(capture.copy(), device=device)
+        sig.params = params
+        sig.qad
+        t0 = time.perf_counter()
+        sig.filter_range(0, n, fir)
+        torch.cuda.synchronize()
+        walls[dtype] = time.perf_counter() - t0
+        check_messages(ut.demodulate(sig), bits, f"FSK {dtype} filtered, from qad")
+        reset_launches()
+        check_messages(ut.demodulate(sig, params), bits, f"FSK {dtype} filtered")
+        if fk.LAUNCHES[key] != 1:
+            raise AssertionError(f"filtered FSK {dtype}: launches {fk.LAUNCHES}")
+        cut = ut.Signal.from_iq(capture[:cpu_n].copy(), device="cpu")
+        cut.params = params
+        cut.filter_range(0, cpu_n, fir)
+        check_filtered(sig.iq_array.data[:cpu_n], cut.iq_array.data, dtype)
+        print(f"filter_range FSK {dtype} ({n} samples): wall {walls[dtype]} s; "
+              f"{len(bits)} messages bit-exact from qad and through {key}", flush=True)
+    return {"walls": walls, "capture": iq.view(np.complex64).reshape(-1)}
+
+
+def lfilter_reference(a, b, x: np.ndarray) -> np.ndarray:
+    """urh_tpu's iir_filter in float64 by scipy: feed-forward from start =
+    max(len(a), len(b) + 1) on, then the feedback (urh_tpu adds it, so the
+    denominator is 1 - b) from a zero carry; zero before start."""
+    from scipy.signal import lfilter
+
+    start = max(len(a), len(b) + 1)
+    ff = lfilter(a, [1.0], x.astype(np.complex128))[start:]
+    out = np.zeros(len(x), np.complex128)
+    out[start:] = lfilter([1.0], np.r_[1.0, -np.asarray(b, np.float64)], ff)
+    return out
+
+
+def iir_phase(device, x: np.ndarray) -> dict:
+    """iir_filter over the complex capture x on the default device as a DC
+    blocker and as a 4th-order Butterworth low-pass, against
+    lfilter_reference within IIR_RTOL of max|y|, each through one B8 launch
+    (counted from 0 just before).  -> walls (s) and launches."""
+    from scipy.signal import butter
+
+    from urh_tpu_torch.dsp.filters import iir_filter
+
+    num, den = butter(4, 0.1)
+    filters = {"DC blocker": ([1.0, -1.0], [0.995]),
+               "Butterworth 4": (list(num), list(-den[1:]))}  # urh_tpu adds the feedback
+    walls, launches = {}, 0
+    for label, (a, b) in filters.items():
+        reset_launches()
+        t0 = time.perf_counter()
+        y = iir_filter(a, b, x, device=device)
+        walls[label] = time.perf_counter() - t0
+        count = read_launches()["iir_feedback_f32"]
+        want = lfilter_reference(a, b, x)
+        rel = np.abs(y - want).max() / np.abs(want).max()
+        print(f"iir_filter {label} over {len(x)} samples: wall {walls[label]} s, B8 launches "
+              f"{count}, max error {rel} of max|y| (limit {IIR_RTOL})", flush=True)
+        if count != 1 or not rel <= IIR_RTOL:
+            raise AssertionError(f"iir_filter {label}: launches {count}, error {rel}")
+        launches += count
+    return {"walls": walls, "launches": launches}
+
+
+def spectrum_phase(device, x: np.ndarray) -> dict:
+    """Spectrogram(window 1024).create_spectrogram_image() of x on the
+    default device; its dB image against the port's on the CPU (DB_ATOL on
+    finite cells at or above DB_FLOOR, the same non-finite cells), colour
+    indices within 1 on every cell, the FSK tones' peak bins at +-25 kHz;
+    create_path over x's real part on the card equal to the CPU's.
+    -> walls (s)."""
+    from urh_tpu_torch.dsp.decimation import create_path
+    from urh_tpu_torch.dsp.spectrogram import Spectrogram
+    from urh_tpu_torch.util import colormaps
+
+    spec = Spectrogram(x, window_size=1024, device=device)
+    walls = {}
+    t0 = time.perf_counter()
+    image = spec.create_spectrogram_image()
+    walls["spectrogram image"] = time.perf_counter() - t0
+    card = spec._calculate_spectrogram(spec.samples)
+    cpu = Spectrogram(x, window_size=1024, device="cpu")._calculate_spectrogram(spec.samples)
+    finite = np.isfinite(card)
+    same_cells = np.array_equal(finite, np.isfinite(cpu)) and np.array_equal(
+        card[~finite], cpu[~finite])
+    above = finite & (cpu >= DB_FLOOR)
+    db_err = float(np.abs(card[above] - cpu[above]).max())
+    low_err = float(np.abs(card[finite & ~above] - cpu[finite & ~above]).max(initial=0.0))
+    n_colors = len(colormaps.chosen_colormap_numpy_bgra)
+    index_err = int(np.abs(
+        Spectrogram.color_indices(card, n_colors, spec.data_min, spec.data_max)
+        - Spectrogram.color_indices(cpu, n_colors, spec.data_min, spec.data_max)).max())
+    # column j of the flipped, shifted image is the frequency (511 - j) / 1024 fs
+    power = np.mean(10.0 ** (card / 10.0), axis=0)
+    freqs = (511 - np.arange(1024)) / 1024 * 1e6
+    peaks = [float(freqs[np.flatnonzero(side)[np.argmax(power[side])]])
+             for side in (freqs > 0, freqs < 0)]
+    print(f"spectrogram {card.shape} ({card.nbytes} bytes of dB, image {image.shape}): wall "
+          f"{walls['spectrogram image']} s; card against CPU max dB diff {db_err} (limit "
+          f"{DB_ATOL}) on the {above.mean():.6%} of cells at or above {DB_FLOOR} dB, "
+          f"{low_err} below; non-finite cells equal {same_cells}, colour index diff "
+          f"{index_err}; peaks at {peaks} Hz", flush=True)
+    if not (same_cells and db_err <= DB_ATOL and index_err <= 1
+            and all(abs(abs(f) - FSK_TONE_HZ) <= 1e6 / 1024 for f in peaks)):
+        raise AssertionError("spectrogram: card and CPU differ, or the tones are off")
+
+    t0 = time.perf_counter()
+    (xs, ys), = create_path(x.real, 0, len(x), device=device)
+    walls["create_path"] = time.perf_counter() - t0
+    (cpu_xs, cpu_ys), = create_path(x.real, 0, len(x), device="cpu")
+    same = np.array_equal(xs, cpu_xs) and np.array_equal(ys, cpu_ys)
+    print(f"create_path over {len(x)} samples: {len(ys) // 2} pixels, wall "
+          f"{walls['create_path']} s, min/max equal to the CPU's {same}", flush=True)
+    if not same or len(ys) != 2 * (len(x) // int(len(x) / 5000)):  # 5,000 pixels at 2^24
+        raise AssertionError("create_path: card and CPU differ")
+    return walls
+
+
+def awre_protocol(n_msgs: int):
+    """bench.py's awre protocol (bench.py:556-592) from the port's own
+    ProtocolGenerator, every message on one shared empty message type."""
+    from urh_tpu_torch.awre.message_type_builder import MessageTypeBuilder
+    from urh_tpu_torch.awre.protocol_generator import ProtocolGenerator
+    from urh_tpu_torch.protocol.labels import FieldType, MessageType, Participant
+
+    f = FieldType.Function
+    alice, bob = Participant("Alice", address_hex="1337"), Participant("Bob", address_hex="4711")
+    mb = MessageTypeBuilder("data")
+    for function, width in ((f.PREAMBLE, 16), (f.SYNC, 16), (f.LENGTH, 8), (f.SRC_ADDRESS, 16),
+                            (f.DST_ADDRESS, 16), (f.SEQUENCE_NUMBER, 8)):
+        mb.add_label(function, width)
+    pg = ProtocolGenerator([mb.message_type], syncs_by_mt={mb.message_type: "0x9a7d"},
+                           participants=[alice, bob])
+    rng = np.random.default_rng(42)
+    for i in range(n_msgs):
+        data = "".join(rng.choice(["0", "1"], size=16 if i % 2 else 32))
+        src, dst = (alice, bob) if i % 2 else (bob, alice)
+        pg.generate_message(data=data, source=src, destination=dst)
+    empty = MessageType("empty")
+    for msg in pg.messages:
+        msg.message_type = empty
+    return pg.messages
+
+
+def format_summary(ff) -> tuple:
+    """(message types with their labels as (name, start, end, field type),
+    their member indices) of a FormatFinder."""
+    types = [(mt.name, [(lbl.name, int(lbl.start), int(lbl.end),
+                         lbl.field_type.function.name if lbl.field_type else None)
+                        for lbl in mt]) for mt in ff.message_types]
+    members = sorted((mt.name, sorted(int(i) for i in indices))
+                     for mt, indices in ff.existing_message_types.items())
+    return types, members
+
+
+def awre_phase(device, n_msgs: int = AWRE_MESSAGES) -> dict:
+    """FormatFinder.run(10) over bench.py's protocol on the card and on the
+    CPU: the same message types, labels and members, the messages
+    unchanged; auto_assign_labels() on the default device; to_pcapng
+    written under build/.  -> walls (s)."""
+    import os
+
+    from urh_tpu_torch import ProtocolAnalyzer
+    from urh_tpu_torch.awre.format_finder import FormatFinder
+
+    walls, found = {}, {}
+    for where in (device, "cpu"):
+        messages = awre_protocol(n_msgs)
+        bits = [m.plain_bits_str for m in messages]
+        t0 = time.perf_counter()
+        ff = FormatFinder(messages, device=where)
+        ff.run(max_iterations=10)
+        walls[str(where)] = time.perf_counter() - t0
+        found[str(where)] = format_summary(ff)
+        if [m.plain_bits_str for m in messages] != bits:
+            raise AssertionError(f"FormatFinder on {where} changed the messages")
+    card, cpu = found[str(device)], found["cpu"]
+    print(f"awre FormatFinder over {n_msgs} messages: walls (s) {walls}; message types "
+          f"{len(card[0])}, labels {card[0][:3]}; card equal to CPU {card == cpu}", flush=True)
+    if card != cpu or not card[0]:
+        raise AssertionError("awre: the card's message types differ from the CPU's")
+
+    proto = ProtocolAnalyzer(None)
+    proto.messages = awre_protocol(n_msgs)
+    t0 = time.perf_counter()
+    proto.auto_assign_labels()
+    walls["auto_assign_labels"] = time.perf_counter() - t0
+    assigned = sorted({m.message_type.name for m in proto.messages})
+    if assigned != sorted(name for name, _ in card[0]):
+        raise AssertionError(f"auto_assign_labels: {assigned}")
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
+                        "awre.pcapng")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    proto.to_pcapng(path)
+    print(f"auto_assign_labels over {n_msgs} messages: wall {walls['auto_assign_labels']} s, "
+          f"types {assigned}; to_pcapng wrote {os.path.getsize(path)} bytes", flush=True)
+    return walls
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
@@ -1425,6 +1776,12 @@ def main():
     elapsed("B7 and the estimation path")
     tx_rates = tx_phase(None)
     elapsed("TX")
+    b8 = b8_phase("cuda")
+    filtered = filter_range_phase(None, N_FULL)  # None: the default device
+    iir = iir_phase(None, filtered["capture"])
+    spectrum_walls = spectrum_phase(None, filtered["capture"])
+    awre_walls = awre_phase("cuda")
+    elapsed("B8, the filter, spectrum and plot paths and awre")
 
     rows = []
     for key, k in KERNELS.items():
@@ -1474,6 +1831,15 @@ def main():
         "large_bound_ms": large_bound, "outputs_a_thread": b7["variant"]["outputs"],
         "registers": b7["variant"]["registers"],
     })
+    bound, bound_by = b8_bound_ms(B8_TIMED_N, b8["cycles"], clock)
+    rows.append({
+        "name": "iir_feedback", "route": "cuda", "source": B8_SOURCE, "replaces": B8_REPLACES,
+        "launches": iir["launches"], "max_abs_err": b8["err"],
+        "mismatching_words": b8["mismatch"], "ms": b8["ms"][B8_TIMED_TAPS], "n": B8_TIMED_N,
+        "taps": B8_TIMED_TAPS, "ms_by_taps": b8["ms"], "plain_ms": b8["plain_ms"],
+        "plain_n": B8_PLAIN_N, "bound_ms": bound, "bound_by": bound_by,
+        "chain_cycles": b8["cycles"], "library_ms": None,
+    })
     for row in rows:
         print(f"{row['name']}: {row['ms']:.4f} ms (bound {row['bound_ms']:.4f} ms, "
               f"{row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
@@ -1486,7 +1852,8 @@ def main():
     print("estimate() and auto_detect() walls (s): " + "; ".join(
         f"{label} {w[0]}, {w[1]}" for label, w in estimated["walls"].items())
         + f"; TX FSK float32 {tx_rates[('FSK', 1, 'float32')]} samples/s at {TX_BODY} "
-        f"samples on {identity}", flush=True)
+        f"samples; filter_range {filtered['walls']}, iir_filter {iir['walls']}, "
+        f"{spectrum_walls}, awre {awre_walls} on {identity}", flush=True)
     print(json.dumps({"kernels": rows}))
     print(identity)
     print(json.dumps({"ok": True, "device": {

@@ -46,6 +46,22 @@ tx = np.concatenate([tx] * 4)
 tx = tx + np.random.default_rng(0).normal(0, 0.01, tx.shape).astype(np.float32)
 found = ut.estimate(tx, device="cpu")
 assert (found["modulation_type"], found["bit_length"]) == ("FSK", 100), found
+from urh_tpu_torch.awre.format_finder import FormatFinder
+from urh_tpu_torch.dsp.decimation import create_path
+from urh_tpu_torch.dsp.filters import Filter, iir_filter
+from urh_tpu_torch.dsp.spectrogram import Spectrogram
+sig = ut.Signal.from_iq(iq, device="cpu")
+sig.params = params
+sig.qad
+sig.filter_range(0, len(iq), Filter(Filter.design_windowed_sinc_bandpass(-0.05, 0.05, 0.08)))
+assert [m.plain_bits_str for m in ut.demodulate(sig)] == ["".join(map(str, bits))]
+assert iir_filter([1.0, -1.0], [0.9], iq[:, 0], device="cpu").shape == (len(iq),)
+assert Spectrogram(iq, window_size=256, device="cpu").create_spectrogram_image().ndim == 3
+assert len(create_path(iq[:, 0], 0, len(iq), device="cpu")) == 1
+proto = ut.ProtocolAnalyzer(sig)
+proto.messages = [m for _ in range(4) for m in ut.demodulate(sig)]
+proto.auto_assign_labels()
+assert FormatFinder(proto.messages, device="cpu").message_types
 loaded = [m for m in sys.modules if m == "urh_tpu" or m.startswith("urh_tpu.")]
 assert not loaded, loaded
 print("ok")
@@ -53,8 +69,9 @@ print("ok")
 
 
 def test_demodulates_with_jax_unimportable_and_loads_no_urh_tpu():
-    """Offline demodulate(), a stream, Modulator.modulate and estimate(), in
-    a process where JAX cannot be imported."""
+    """Offline demodulate(), a stream, Modulator.modulate, estimate(),
+    filter_range, the IIR filter, a spectrogram, a plot path and awre, in a
+    process where JAX cannot be imported."""
     out = subprocess.run([sys.executable, "-c", DEMOD_WITHOUT_JAX], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -98,6 +115,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         urh_tpu_torch.estimate(iq)
     with pytest.raises(RuntimeError, match="CUDA"):
         urh_tpu_torch.Modulator().modulate("1010")
+    from urh_tpu_torch.awre.format_finder import FormatFinder
+    from urh_tpu_torch.dsp.decimation import create_path
+    from urh_tpu_torch.dsp.filters import Filter, fir_filter, iir_filter
+    from urh_tpu_torch.dsp.spectrogram import Spectrogram
+
+    x = np.ones(20000, np.complex64)  # four samples a pixel of a plot path
+    for call in (lambda: fir_filter(x, np.ones(3)), lambda: iir_filter([1.0], [0.5], x),
+                 lambda: Filter.fft_convolve_1d(x, np.ones(3)), lambda: Spectrogram(x),
+                 lambda: create_path(x.real, 0, len(x)), lambda: FormatFinder([])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
     # an explicit device is honoured
     assert Signal.from_iq(iq, device="cpu").device == torch.device("cpu")
 

@@ -3,9 +3,11 @@
 Offline demodulation (raw IQ -> noise gate and ASK/FSK/PSK demodulation
 -> symbol states -> pulse runs -> bits -> Messages), streaming
 demodulation (chunks -> run segments, :class:`StreamDemodulator`),
-automatic parameter estimation (:func:`estimate`) and TX synthesis
-(:class:`Modulator`) run on a CUDA card, with the kernels written by hand
-in CUDA C++ (``csrc/``).  Entry points run on the card unless the caller
+automatic parameter estimation (:func:`estimate`), TX synthesis
+(:class:`Modulator`), filters (``dsp.filters``, ``Signal.filter_range``),
+spectrograms (``dsp.spectrogram``), plot paths (``dsp.decimation``) and
+protocol inference (``awre``, ``ProtocolAnalyzer.auto_assign_labels``) run
+on a CUDA card, with the kernels written by hand in CUDA C++ (``csrc/``).  Entry points run on the card unless the caller
 passes ``device="cpu"``, where every kernel's plain PyTorch version runs
 instead.  Imports neither JAX nor urh_tpu.
 

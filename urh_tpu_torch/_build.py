@@ -22,11 +22,13 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "urh_tpu_torch")
 _SOURCES = ["fused_demod.cu", "fused_demod.cuh", "costas.cu", "costas.cuh",
-            "stream_block.cu", "stream_block.cuh", "median_filter.cu", "median_filter.cuh"]
+            "stream_block.cu", "stream_block.cuh", "median_filter.cu", "median_filter.cuh",
+            "iir_feedback.cu", "iir_feedback.cuh"]
 
 # numerics-relevant flags are part of the cache key.  No --use_fast_math:
 # K3 parity needs the IEEE sqrtf and division, and the Costas loop the
 # full-accuracy sincosf (the median filter compares integers only);
+# the IIR feedback's products and sums round one by one, as its plain loop's;
 # -fmad=false keeps every product rounded as the separate PyTorch ops round
 # it.
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,7 +45,7 @@ _SIGNATURES = {
     "urh_ask_f32": [_PTR, _C_INT64, _C_FLOAT, _C_FLOAT, _C_FLOAT, _PTR, _PTR, _PTR],
     "urh_ask_i8": [_PTR, _C_INT64, _C_INT, _C_INT, _C_INT, _PTR, _PTR],
 }
-# costas.cu's, stream_block.cu's and median_filter.cu's
+# costas.cu's, stream_block.cu's, median_filter.cu's and iir_feedback.cu's
 _STREAM_SIGNATURES = {
     "urh_costas_f32": [_PTR, _C_INT64, _C_FLOAT, _C_FLOAT, _C_FLOAT, _C_INT, _C_FLOAT,
                        _C_FLOAT, _PTR, _PTR, _PTR],
@@ -57,6 +59,9 @@ _STREAM_SIGNATURES = {
     "urh_median_filter_f32": [_PTR, _C_INT64, _C_INT64, _C_INT64, _PTR, _PTR],
     # not a launcher: which kernel a window k takes (and its registers)
     "urh_median_filter_variant": [_C_INT64, _PTR, _PTR, _PTR, _PTR],
+    "urh_iir_feedback_f32": [_PTR, _C_INT64, _PTR, _C_INT, _PTR, _PTR],
+    # not a launcher of the filter: the chain step's latency in SM cycles
+    "urh_iir_chain_cycles": [_PTR, _C_INT64, _PTR, _PTR, _PTR],
 }
 # the one launcher-side helper that returns a size, not a CUDA error
 _WORK_WORDS = ("urh_stream_block_work_words", [_C_INT64, _C_INT64, _C_INT])

@@ -4,7 +4,9 @@ Counterpart of urh/util/GenericCRC.py (616 LoC) plus the bitwise kernels
 from urh/cythonext/util.pyx:75-304.  The kernels here use Python/numpy
 integer arithmetic (messages are short, and Python ints are arbitrary
 precision, covering poly orders > 64).  Host copy of urh_tpu.coding.crc;
-its batched GF(2)-matmul device variant comes with the awre port.
+for sweeping one CRC config over many equal-length messages at once there
+is a batched GF(2)-matmul variant on the device:
+urh_tpu_torch.awre.device.batched_crc.
 
 Supports arbitrary polynomials, start value, final xor, lsb-first input,
 reversed polynomial, reversed output and little-endian byte order, plus:

@@ -407,6 +407,25 @@ class Signal:
         self.iq_array.insert_subarray(position, data)
         self._qad = None
 
+    def filter_range(self, start: int, end: int, fir_filter):
+        """Apply an FIR filter to a sample range on the signal's device and
+        re-demodulate it (Signal.py:642-651).  The filtered samples are
+        written back cast to the capture's dtype (NumPy's cast: a float to
+        an integer truncates toward zero).  A cached qad gets the range
+        re-demodulated; the fused kernels' states, which no longer match
+        the samples, are dropped, so the next demodulation derives them from
+        qad (as urh_tpu's CPU route always does)."""
+        filtered = fir_filter.work(np.ascontiguousarray(self.iq_array[start:end]),
+                                   device=self.device)
+        self.iq_array[start:end] = np.column_stack((filtered.real, filtered.imag)).astype(
+            self.iq_array.dtype) if np.iscomplexobj(filtered) else filtered
+        if self._qad is not None:
+            self._qad[start:end] = _demod.afp_demod(
+                self.iq_array[start:end], self.params.noise_threshold,
+                self.params.modulation, self.params.modulation_order,
+                self.params.costas_loop_bandwidth, device=self.device)
+            self.__qad_states = None
+
     @staticmethod
     def from_samples(samples: np.ndarray, name: str, sample_rate: float,
                      device=None) -> "Signal":

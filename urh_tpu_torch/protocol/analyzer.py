@@ -463,8 +463,18 @@ class ProtocolAnalyzer:
                     break
 
     def auto_assign_labels(self):
-        raise NotImplementedError(
-            "automatic labelling needs the awre port (ROADMAP.md queue A, item A10)")
+        """Infer message types and labels with awre's FormatFinder, on the
+        signal's device when there is a signal, else on the default (the
+        CUDA card)."""
+        from urh_tpu_torch.awre.format_finder import FormatFinder
+
+        format_finder = FormatFinder(
+            self.messages, device=self.signal.device if self.signal is not None else None)
+        format_finder.run(max_iterations=10)
+        self.message_types[:] = format_finder.message_types
+        for msg_type, indices in format_finder.existing_message_types.items():
+            for i in indices:
+                self.messages[i].message_type = msg_type
 
     def eliminate(self):
         self.message_types = None
@@ -557,8 +567,15 @@ class ProtocolAnalyzer:
         self.from_xml_tag(tree.getroot(), read_bits=read_bits)
 
     def to_pcapng(self, filename: str, hardware_desc_name: str = "", link_type: int = 147):
-        raise NotImplementedError(
-            "PCAPNG export needs the device layer port (ROADMAP.md queue A, item A11)")
+        from urh_tpu_torch.dev import pcapng
+
+        pcapng.create_pcapng_file(filename=filename, shb_userappl="urh_tpu_torch",
+                                  shb_hardware=hardware_desc_name, link_type=link_type)
+        pcapng.append_packets_to_pcapng(
+            filename=filename,
+            packets=(msg.decoded_ascii_buffer for msg in self.messages),
+            timestamps=(msg.timestamp for msg in self.messages),
+        )
 
     # -- string parsing (ProtocolAnalyzer.py:842-898) ----------------------
     @staticmethod

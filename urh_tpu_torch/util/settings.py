@@ -12,6 +12,8 @@ from __future__ import annotations
 import json
 import os
 
+PIXELS_PER_PATH = 5000  # urh_tpu.util.settings: min/max pairs of a plot path
+
 _config_dir = os.path.join(
     os.environ.get("XDG_CONFIG_HOME", os.path.join(os.path.expanduser("~"), ".config")),
     "urh_tpu",
