@@ -99,12 +99,35 @@
    on the card and on the CPU: the same message types, labels and members,
    the messages unchanged; ``ProtocolAnalyzer.auto_assign_labels()`` on the
    default device; ``to_pcapng`` written under ``build/``.  Walls printed.
+11. The live loop, on the default device.  The native host library (g++)
+   must build, and the stream's host route (its fused block and run-length
+   encoder, counted) must give the device route's segments of the FSK
+   capture.  A ``ProtocolSniffer`` over the Network SDR in raw mode (port 0)
+   receives the 2^24-sample float32 FSK capture and then silence of two
+   pause gates from a Network SDR sender, and once those are fed one gate
+   more (a continuing stream's next drain, which releases the stream's
+   chunk in flight): all 367 messages bit-exact in
+   order, one stream block launch a drain (``sniffer.demodulate``'s calls),
+   no fallback, no host block; the drains' sizes, the wall from the first
+   sample received to the last message and the rates printed.  The same
+   for the 2^22-sample BPSK capture: the bit lists of ``demodulate()`` on
+   the card, one Costas launch a drain.  The FSK run again under
+   ``torch.profiler``: the card's busy share of the live wall (kernels,
+   copies and fills).  TX: 64 messages of 256 random bits, one 8-bit label
+   fuzzed over 16 values, through ``GeneratorBackend`` on the card (equal to
+   the CPU's within 4 ulps) and a sending ``VirtualDevice`` back to a
+   sniffer, then through ``ContinuousModulator``'s spawned child on the card
+   and a continuous-send ``VirtualDevice``: every message back bit-exact,
+   the child exits 0 on its own.  The default receive buffer (5e7 samples)
+   holds every capture with its silence, and the phase fails if its index
+   ever wrapped (a wrap splices stale samples into the stream: ROADMAP §C,
+   C5); it fails on any exception raised on a thread.
 
 Every failed check raises.  The last three lines are a JSON ``kernels``
 summary, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``; the two lines before them have the offline PSK wall time, the
-stream's samples per second, the estimate() walls, the TX rate and the
-filter, spectrum, plot path and awre walls.  Without a CUDA card the
+stream's samples per second, the estimate() walls, the TX rate, the
+filter, spectrum, plot path and awre walls, and the live loop's rates.  Without a CUDA card the
 script exits non-zero before it prints any result.
 """
 
@@ -1741,6 +1764,389 @@ def awre_phase(device, n_msgs: int = AWRE_MESSAGES) -> dict:
     return walls
 
 
+# -- the live loop: ProtocolSniffer over the Network SDR, TX back onto it -------
+
+LIVE_DEADLINE_S = 120.0  # for every wait of the live phase
+LIVE_SILENCE_GATES = 2  # silence sent after a capture, in pause gates
+LIVE_TX_MESSAGES, LIVE_TX_BITS, LIVE_TX_PAUSE = 64, 256, 20000
+LIVE_TX_FUZZ = 16  # values of the fuzzed 8-bit label (the first is its default)
+NETWORK_SDR = "Network SDR"
+
+
+class ThreadFaults:
+    """Records every exception that ends a thread (threading.excepthook), so
+    a fault on the sniffer's poll thread fails the phase."""
+
+    def __init__(self):
+        import threading
+
+        self.faults, self._threading = [], threading
+
+    def __enter__(self):
+        self._saved = self._threading.excepthook
+        self._threading.excepthook = lambda args: self.faults.append(
+            f"{args.thread.name if args.thread else '?'}: {args.exc_type.__name__}: "
+            f"{args.exc_value}")
+        return self
+
+    def __exit__(self, *exc):
+        self._threading.excepthook = self._saved
+
+    def check(self, label: str):
+        if self.faults:
+            raise AssertionError(f"{label}: threads raised {self.faults}")
+
+
+def wait_for(condition, what: str, deadline_s: float = LIVE_DEADLINE_S):
+    deadline = time.monotonic() + deadline_s
+    while not condition():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"live: {what} not reached within {deadline_s} s")
+        time.sleep(0.001)
+
+
+def live_sniffer(device, p):
+    """A port ProtocolSniffer on ``device`` with p's parameters, its Network
+    SDR in raw mode on a free port, started; -> (sniffer, its receive server
+    port, a record of drain sizes and of the first sample's and each
+    message's time)."""
+    from urh_tpu_torch.dev.backend_handler import BackendHandler
+    from urh_tpu_torch.protocol.sniffer import ProtocolSniffer
+
+    sniffer = ProtocolSniffer(p.samples_per_symbol, p.center, p.center_spacing,
+                              p.noise_threshold, p.tolerance, p.modulation, p.bits_per_symbol,
+                              NETWORK_SDR, BackendHandler(), network_raw_mode=True,
+                              compute_device=device)
+    record = {"drains": [], "first_sample": None, "messages": []}
+    ingest = sniffer._ingest
+
+    def counted_ingest(chunk):
+        record["drains"].append(len(chunk))
+        ingest(chunk)
+
+    sniffer._ingest = counted_ingest
+    sniffer.message_sniffed.connect(lambda _: record["messages"].append(time.perf_counter()))
+    sniffer.rcv_device.set_server_port(0)
+    sniffer.sniff()
+    server = sniffer.rcv_device.underlying_device.server
+    sink = server.sink
+
+    def timed_sink(frames):
+        if record["first_sample"] is None and len(frames):
+            record["first_sample"] = time.perf_counter()
+        sink(frames)
+
+    server.sink = timed_sink  # read by each connection's handler
+    return sniffer, sniffer.rcv_device.underlying_device.server_port, record
+
+
+def wait_drained(sniffer, total: int, label: str):
+    """Wait until the receive index reached ``total`` and the sniffer fed
+    every sample up to it.  The receive buffer is larger than every capture
+    sent, so its index must not wrap (C5: a wrap splices stale samples into
+    the stream)."""
+    dev = sniffer.rcv_device
+    if total >= len(dev.data):
+        raise AssertionError(f"{label}: {total} samples do not fit the receive buffer")
+    wait_for(lambda: dev.current_index == total and sniffer.drain_position == total,
+             f"{label}: {total} samples received and drained")
+
+
+def drain_and_stop(sniffer, total: int, label: str):
+    """wait_drained, then stop the sniffer; the index must not have wrapped."""
+    dev = sniffer.rcv_device
+    wait_drained(sniffer, total, label)
+    sniffer.stop()
+    if dev.current_index != total:
+        raise AssertionError(f"{label}: the receive index wrapped ({dev.current_index})")
+
+
+def send_raw(port: int, data: np.ndarray):
+    from urh_tpu_torch import IQData
+    from urh_tpu_torch.dev.network_sdr import NetworkSDRInterfacePlugin
+
+    sender = NetworkSDRInterfacePlugin(raw_mode=True, sending=True)
+    sender.client_port = port
+    sender.send_raw_data(IQData(data, skip_conversion=True), 1)
+
+
+def live_rx(device, iq: np.ndarray, p, label: str) -> dict:
+    """Send iq, then LIVE_SILENCE_GATES pause gates of silence, to a sniffer
+    on ``device``, and once those are fed one gate more: the stream keeps
+    one chunk in flight, and a continuing stream's next drain releases it
+    (without that the last message waits for stop(), whose receive server
+    shuts down on a 0.5 s poll).  -> the sniffer's messages' bits, the
+    record of live_sniffer, the samples sent, the wall from the first
+    sample received to the last message, the stream's kernel launches and
+    sniffer.demodulate's report."""
+    from urh_tpu_torch.dsp import costas
+    from urh_tpu_torch.dsp import stream_kernels as sk
+    from urh_tpu_torch.protocol import stream
+    from urh_tpu_torch.util.metrics import metrics
+
+    silence = np.zeros((LIVE_SILENCE_GATES * stream.PAUSE_GATE_SYMBOLS * p.samples_per_symbol,
+                        2), np.float32)
+    for counts in (sk.LAUNCHES, costas.LAUNCHES, stream.FALLBACKS, stream.HOST_ROUTE):
+        for key in counts:
+            counts[key] = 0
+    metrics.clear()
+    gate = silence[:len(silence) // LIVE_SILENCE_GATES]
+    sniffer, port, record = live_sniffer(device, p)
+    send_raw(port, iq)
+    send_raw(port, silence)
+    wait_drained(sniffer, len(iq) + len(silence), label)
+    send_raw(port, gate)
+    drain_and_stop(sniffer, len(iq) + len(silence) + len(gate), label)
+    launches = {**sk.LAUNCHES, **costas.LAUNCHES}
+    if stream.FALLBACKS["states"] or any(stream.HOST_ROUTE.values()):
+        raise AssertionError(f"{label}: fallbacks {stream.FALLBACKS}, host route "
+                             f"{stream.HOST_ROUTE}")
+    if not record["messages"]:
+        raise AssertionError(f"{label}: no message")
+    return dict(bits=[m.plain_bits for m in sniffer.messages], record=record,
+                total=len(iq) + len(silence) + len(gate),
+                wall=record["messages"][-1] - record["first_sample"], launches=launches,
+                report=metrics.report()["sniffer.demodulate"])
+
+
+def device_busy_share(trace_path: str, wall_s: float) -> tuple[float, float]:
+    """-> (the union of kernel, memcpy and memset time in a Chrome trace over
+    wall_s, the same over the span from the first such event to the last)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
+    if not spans:
+        raise AssertionError("live: the trace holds no device activity")
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy * 1e-6 / wall_s, busy / (end - spans[0][0])
+
+
+def pinned_allocation_ms(sizes) -> dict:
+    """ms of a pinned host allocation of each size, as a stream's staging
+    slot makes it, after the caching host allocator was emptied (where this
+    torch has the call); -> {bytes: (ms, whether it called cudaHostAlloc)}."""
+    empty_cache = next((getattr(torch._C, name) for name in (
+        "_host_emptyCache", "_accelerator_emptyHostCache", "_cuda_hostEmptyCache")
+        if hasattr(torch._C, name)), None)
+    out = {}
+    for nbytes in sizes:
+        if empty_cache is not None:
+            empty_cache()
+        before = torch.cuda.host_memory_stats().get("num_host_alloc")
+        t0 = time.perf_counter()
+        buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        ms = (time.perf_counter() - t0) * 1e3
+        after = torch.cuda.host_memory_stats().get("num_host_alloc")
+        out[nbytes] = (ms, None if before is None else after > before)
+        del buf
+    return out
+
+
+def live_tx_container(seed: int = 19):
+    """LIVE_TX_MESSAGES messages of LIVE_TX_BITS random bits, the first with
+    an 8-bit label fuzzed successively over LIVE_TX_FUZZ values."""
+    from urh_tpu_torch.protocol.container import ProtocolAnalyzerContainer
+    from urh_tpu_torch.protocol.message import Message
+
+    rng = np.random.default_rng(seed)
+    container = ProtocolAnalyzerContainer()
+    container.messages = [
+        Message.from_plain_bits_str("".join(map(str, bits)), pause=LIVE_TX_PAUSE)
+        for bits in rng.integers(0, 2, (LIVE_TX_MESSAGES, LIVE_TX_BITS))]
+    label = container.messages[0].message_type.add_protocol_label(16, 23)  # 8 bits
+    label.fuzz_me = True
+    label.fuzz_values = [format(v, "08b") for v in rng.choice(256, LIVE_TX_FUZZ, replace=False)]
+    if len(container.fuzz_successive()) != LIVE_TX_FUZZ - 1:
+        raise AssertionError("live TX: the container's fuzzing")
+    return container
+
+
+def native_host_route_phase(device, iq: np.ndarray, identity: str,
+                            chunk: int = STREAM_CHUNK) -> dict:
+    """The native library builds, and the stream's host route (its fused block
+    and run-length encoder, one call each a chunk) gives the device route's
+    segments on the FSK capture; -> the host route's counts."""
+    import urh_tpu_torch as ut
+    from urh_tpu_torch import native
+    from urh_tpu_torch.protocol import stream
+
+    if not native.is_available():
+        raise AssertionError("live: the native library did not build")
+    params = demod_params("FSK", np.float32)
+    for key in stream.HOST_ROUTE:
+        stream.HOST_ROUTE[key] = 0
+    t0 = time.perf_counter()
+    host = stream_segments(ut.StreamDemodulator(params, backend="host", device=device), iq, chunk)
+    wall = time.perf_counter() - t0
+    counts = dict(stream.HOST_ROUTE)
+    card = stream_segments(ut.StreamDemodulator(params, backend="device", device=device), iq,
+                           chunk)
+    chunks = -(-len(iq) // chunk)
+    if counts != {"native_block": chunks, "numpy_block": 0, "native_rle": chunks}:
+        raise AssertionError(f"live: host route counts {counts} for {chunks} chunks")
+    key = [(s.start_sample, s.num_samples, s.ppseq.tolist()) for s in host]
+    if key != [(s.start_sample, s.num_samples, s.ppseq.tolist()) for s in card]:
+        raise AssertionError("live: the host route's segments differ from the device route's")
+    print(f"live native host route: library {native.build.build()}, {len(host)} segments equal "
+          f"to the device route's, counts {counts}, {len(iq) / wall} samples/s (host clock) "
+          f"on {identity}", flush=True)
+    return counts
+
+
+def live_phase(device, identity: str, n: int = N_FULL, psk_n: int = B5_TIMED_N) -> dict:
+    """The live loop on ``device`` (None: the card): RX of the FSK and BPSK
+    captures over the Network SDR through the sniffer (B6, B5), the same FSK
+    run again under torch.profiler for the card's busy share, TX of a fuzzed
+    container by GeneratorBackend (one buffer) and by ContinuousModulator
+    (its spawned child) back through a sniffer; ``identity`` (the card's
+    name and power limit) ends each line of numbers.  -> numbers for the
+    summary."""
+    import os
+
+    import urh_tpu_torch as ut
+    from urh_tpu_torch.dev.backend_handler import BackendHandler
+    from urh_tpu_torch.dev.virtual_device import Mode, VirtualDevice
+    from urh_tpu_torch.dsp.continuous_modulator import ContinuousModulator
+    from urh_tpu_torch.protocol.generator import GeneratorBackend
+    from urh_tpu_torch.util.metrics import TRACE_FILE, profile_trace
+
+    out = {}
+    with ThreadFaults() as faults:
+        iq, bits = make_capture("FSK", n, seed=11)
+        out["native"] = native_host_route_phase(device, iq, identity)
+
+        p = demod_params("FSK", np.float32)
+        rx = live_rx(device, iq, p, "live FSK")
+        got, drains, wall, launches, report = (rx["bits"], rx["record"]["drains"], rx["wall"],
+                                               rx["launches"], rx["report"])
+        faults.check("live FSK")
+        check_bits(got, bits, "live FSK")
+        if launches["stream_block_f32"] != report["calls"] or not report["calls"]:
+            raise AssertionError(f"live FSK: {launches['stream_block_f32']} stream block "
+                                 f"launches for {report['calls']} drains")
+        n_total = rx["total"]
+        out["fsk"] = dict(drains=len(drains), min=min(drains), median=statistics.median(drains),
+                          max=max(drains), wall=wall, rate=n_total / wall,
+                          demod_rate=report["samples_per_second"],
+                          launches=launches["stream_block_f32"])
+        print(f"live FSK: {len(got)} messages bit-exact; {len(drains)} drains of min "
+              f"{min(drains)}, median {statistics.median(drains)}, max {max(drains)} samples; "
+              f"stream block launches {launches['stream_block_f32']} = sniffer.demodulate calls "
+              f"{report['calls']}; no fallback, no host block, no wrap; wall from the first "
+              f"sample received to the last message {wall} s ({n_total / wall} samples/s); "
+              f"sniffer.demodulate {report['samples_per_second']} samples/s on {identity}",
+              flush=True)
+        out["pin_ms"] = pinned_allocation_ms((max(drains) * 8, len(iq) * 8))
+        print(f"live: pinned staging buffers of the largest drain's and the whole capture's "
+              f"bytes allocate in {out['pin_ms']} (bytes: ms, whether cudaHostAlloc ran) on "
+              f"{identity}",
+              flush=True)
+
+        psk_iq, psk_bits = make_psk_capture(psk_n, seed=13)
+        offline = [m.plain_bits for m in ut.demodulate(
+            ut.Signal.from_iq(psk_iq, device=device), psk_params())]
+        rx = live_rx(device, psk_iq, psk_params(), "live PSK")
+        got, wall, launches, report = rx["bits"], rx["wall"], rx["launches"], rx["report"]
+        faults.check("live PSK")
+        check_psk_messages(got, psk_bits, "live PSK")
+        if got != offline:
+            raise AssertionError("live PSK: the sniffer's bits differ from demodulate()'s")
+        if launches["costas_f32"] != report["calls"] or not report["calls"]:
+            raise AssertionError(f"live PSK: {launches['costas_f32']} Costas launches for "
+                                 f"{report['calls']} drains")
+        out["psk"] = dict(drains=len(rx["record"]["drains"]), wall=wall,
+                          launches=launches["costas_f32"])
+        print(f"live PSK: {len(got)} bit lists equal to demodulate()'s on the card, Costas "
+              f"launches {launches['costas_f32']} = drains {report['calls']}; wall {wall} s on "
+              f"{identity}",
+              flush=True)
+
+        trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                                 "chip_smoke", "live_trace")
+        with profile_trace(trace_dir):
+            rx = live_rx(device, iq, p, "live FSK traced")
+        faults.check("live FSK traced")
+        check_bits(rx["bits"], bits, "live FSK traced")
+        wall, n_drains = rx["wall"], len(rx["record"]["drains"])
+        share, active_share = device_busy_share(os.path.join(trace_dir, TRACE_FILE), wall)
+        out["busy"] = dict(share=share, active_share=active_share, wall=wall, drains=n_drains)
+        print(f"live FSK traced: the card busy {share:.4%} of the live wall ({wall} s, "
+              f"{n_drains} drains; kernels, copies and fills), {active_share:.4%} "
+              f"from its first device event to its last, on {identity}", flush=True)
+
+        container = live_tx_container()
+        fsk = tx_modulator("FSK", 1, [-25e3, 25e3])
+        fsk.carrier_freq_hz = 0.0
+        sent = [np.frombuffer(bytes(m.encoded_bits), np.uint8) for m in container.messages]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = GeneratorBackend(container, [fsk], device=device).generate()
+        gen_wall = time.perf_counter() - t0
+        cpu = GeneratorBackend(container, [fsk], device="cpu").generate()
+        diff = np.abs(card.data.astype(np.float64) - cpu.data)
+        limit = TX_FLOAT_ULPS * float(np.finfo(np.float32).eps)
+        if card.data.dtype != np.float32 or card.data.shape != cpu.data.shape or \
+                diff.max() > limit:
+            raise AssertionError(f"live TX: the card's buffer differs from the CPU's by "
+                                 f"{diff.max()} (limit {limit})")
+        sniffer, port, _ = live_sniffer(device, p)
+        sender = VirtualDevice(BackendHandler(), NETWORK_SDR, Mode.send,
+                               samples_to_send=card, sending_repeats=1)
+        sender.set_client_port(port)
+        sender.start()
+        wait_for(lambda: sender.sending_finished, "live TX: the buffer sent")
+        sender.stop("sent")
+        drain_and_stop(sniffer, len(card), "live TX buffer")
+        faults.check("live TX buffer")
+        check_bits([m.plain_bits for m in sniffer.messages], sent, "live TX buffer")
+        out["tx"] = dict(samples=len(card), rate=len(card) / gen_wall, max_diff=diff.max())
+        print(f"live TX buffer: GeneratorBackend over {len(sent)} messages ({LIVE_TX_FUZZ - 1} "
+              f"fuzzed) -> {len(card)} samples in {gen_wall} s on the card "
+              f"({len(card) / gen_wall} samples/s), max diff from the CPU {diff.max()} "
+              f"(limit {limit}); every message back bit-exact through a sniffer; on {identity}",
+              flush=True)
+
+        continuous = ContinuousModulator(container.messages, [fsk], num_repeats=1,
+                                         dtype=np.float32, device=device)
+        sniffer, port, _ = live_sniffer(device, p)
+        sender = VirtualDevice(BackendHandler(), NETWORK_SDR, Mode.send)
+        sender.set_client_port(port)
+        sender.continuous_send_ring_buffer = continuous.ring_buffer
+        sender.is_send_continuous = True
+        sender.num_samples_to_send = len(card)
+        sender.num_sending_repeats = 1
+        t0 = time.perf_counter()
+        continuous.start()
+        sender.start()
+        # the child's cursor moves once its first message is in the ring
+        wait_for(lambda: continuous.current_message_index.value > 0 or sender.current_index > 0
+                 or not continuous.is_running, "live TX continuous: the first block")
+        first_block = time.perf_counter() - t0
+        continuous.process.join(LIVE_DEADLINE_S)
+        if continuous.is_running or continuous.process.exitcode != 0:
+            raise AssertionError(f"live TX continuous: the child is alive "
+                                 f"{continuous.is_running}, exit code "
+                                 f"{continuous.process.exitcode}")
+        wait_for(lambda: sender.sending_finished, "live TX continuous: the stream sent")
+        sender.stop("sent")
+        drain_and_stop(sniffer, len(card), "live TX continuous")
+        stream_wall = time.perf_counter() - t0
+        continuous.stop()
+        faults.check("live TX continuous")
+        check_bits([m.plain_bits for m in sniffer.messages], sent, "live TX continuous")
+        out["continuous"] = dict(first_block=first_block, rate=len(card) / stream_wall)
+        print(f"live TX continuous: the child on the card exited 0 after its repeat; its first "
+              f"block {first_block} s after start(); {len(card)} samples streamed in "
+              f"{stream_wall} s ({len(card) / stream_wall} samples/s); every message back "
+              f"bit-exact; on {identity}", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
@@ -1782,6 +2188,8 @@ def main():
     spectrum_walls = spectrum_phase(None, filtered["capture"])
     awre_walls = awre_phase("cuda")
     elapsed("B8, the filter, spectrum and plot paths and awre")
+    live = live_phase(None, identity)  # None: the default device
+    elapsed("the live loop")
 
     rows = []
     for key, k in KERNELS.items():
@@ -1801,6 +2209,7 @@ def main():
     rows.append({
         "name": "costa_demod_scan", "route": "cuda", "source": B5_SOURCE,
         "replaces": B5_REPLACES, "launches": launches["costas_f32"],
+        "live_launches": live["psk"]["launches"],
         "max_abs_err": b5["err"], "state_mismatches": b5["mismatch"],
         "ms": b5["ms"], "n": B5_TIMED_N, "plain_ms": b5["plain_ms"],
         "plain_n": B5_PLAIN_N, "bound_ms": bound, "bound_by": bound_by,
@@ -1811,7 +2220,9 @@ def main():
         ms, plain_ms = b6["timings"][(ingest, N_FULL)]
         rows.append({
             "name": key, "route": "cuda", "source": B6_SOURCE, "replaces": B6_REPLACES,
-            "launches": launches[key], "max_abs_err": b6["err"][ingest],
+            "launches": launches[key],
+            **({"live_launches": live["fsk"]["launches"]} if ingest == "f32" else {}),
+            "max_abs_err": b6["err"][ingest],
             "state_mismatches": b6["mismatch"][ingest], "ms": ms,
             "chunk_ms": b6["timings"][(ingest, STREAM_CHUNK)][0], "plain_ms": plain_ms,
             "bound_ms": b6_bytes(N_FULL, ingest_bytes) / HBM_BYTES_PER_S * 1e3,
@@ -1853,7 +2264,11 @@ def main():
         f"{label} {w[0]}, {w[1]}" for label, w in estimated["walls"].items())
         + f"; TX FSK float32 {tx_rates[('FSK', 1, 'float32')]} samples/s at {TX_BODY} "
         f"samples; filter_range {filtered['walls']}, iir_filter {iir['walls']}, "
-        f"{spectrum_walls}, awre {awre_walls} on {identity}", flush=True)
+        f"{spectrum_walls}, awre {awre_walls}; live FSK {live['fsk']['rate']} samples/s over "
+        f"{live['fsk']['drains']} drains (sniffer.demodulate {live['fsk']['demod_rate']}), "
+        f"card busy {live['busy']['share']:.4%}, TX buffer {live['tx']['rate']} samples/s, "
+        f"continuous child's first block {live['continuous']['first_block']} s on {identity}",
+        flush=True)
     print(json.dumps({"kernels": rows}))
     print(identity)
     print(json.dumps({"ok": True, "device": {

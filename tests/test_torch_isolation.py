@@ -22,7 +22,9 @@ FORBIDDEN_IMPORT = re.compile(r"^\s*(?:import|from)\s+(?:jax|urh_tpu)\b", re.M)
 
 DEMOD_WITHOUT_JAX = r"""
 import sys
+import time
 sys.modules["jax"] = None  # any import of jax now fails
+sys.path.insert(0, sys.argv[1])  # packages jax and urh_tpu there raise, in spawned children too
 import numpy as np
 import urh_tpu_torch as ut
 
@@ -62,17 +64,49 @@ proto = ut.ProtocolAnalyzer(sig)
 proto.messages = [m for _ in range(4) for m in ut.demodulate(sig)]
 proto.auto_assign_labels()
 assert FormatFinder(proto.messages, device="cpu").message_types
+from urh_tpu_torch.dev.backend_handler import BackendHandler
+from urh_tpu_torch.dsp.continuous_modulator import ContinuousModulator
+from urh_tpu_torch.protocol.container import ProtocolAnalyzerContainer
+from urh_tpu_torch.protocol.generator import GeneratorBackend
+from urh_tpu_torch.protocol.sniffer import ProtocolSniffer
+from urh_tpu_torch.util import settings
+settings.OVERWRITE_RECEIVE_BUFFER_SIZE = 100000
+sniffer = ProtocolSniffer(100, 0.0, 0.1, 0.1, 5, "FSK", 1, "Network SDR", BackendHandler(),
+                          network_raw_mode=True, compute_device="cpu")
+sniffer._stream = sniffer._make_stream()
+for i in range(0, len(iq), 1000):
+    sniffer._ingest(iq[i:i + 1000])
+sniffer._emit_segments(sniffer._stream.flush())
+assert sniffer.plain_bits_str == ["".join(map(str, bits))], sniffer.plain_bits_str
+container = ProtocolAnalyzerContainer.from_string(["10110010" * 8] * 3, default_pause=3000)
+buffer = GeneratorBackend(container, [modulator], device="cpu").generate()
+assert len(buffer) == 3 * (64 * 100 + 3000), len(buffer)
+continuous = ContinuousModulator(container.messages, [modulator], num_repeats=1, device="cpu")
+continuous.start()
+deadline = time.monotonic() + 60
+while continuous.ring_buffer.is_empty and time.monotonic() < deadline:
+    time.sleep(0.01)
+assert not continuous.ring_buffer.is_empty
+continuous.process.join(60)
+assert continuous.process.exitcode == 0, continuous.process.exitcode
+continuous.stop()
 loaded = [m for m in sys.modules if m == "urh_tpu" or m.startswith("urh_tpu.")]
 assert not loaded, loaded
 print("ok")
 """
 
 
-def test_demodulates_with_jax_unimportable_and_loads_no_urh_tpu():
+def test_demodulates_with_jax_unimportable_and_loads_no_urh_tpu(tmp_path):
     """Offline demodulate(), a stream, Modulator.modulate, estimate(),
-    filter_range, the IIR filter, a spectrogram, a plot path and awre, in a
-    process where JAX cannot be imported."""
-    out = subprocess.run([sys.executable, "-c", DEMOD_WITHOUT_JAX], cwd=ROOT,
+    filter_range, the IIR filter, a spectrogram, a plot path, awre, the
+    sniffer's ingest, GeneratorBackend and a ContinuousModulator's spawned
+    child, in a process where JAX cannot be imported (and, for the child,
+    neither JAX nor urh_tpu)."""
+    for name in ("jax", "urh_tpu"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "__init__.py").write_text(
+            f"raise ImportError('{name} imported by urh_tpu_torch')\n")
+    out = subprocess.run([sys.executable, "-c", DEMOD_WITHOUT_JAX, str(tmp_path)], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
@@ -119,7 +153,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from urh_tpu_torch.dsp.decimation import create_path
     from urh_tpu_torch.dsp.filters import Filter, fir_filter, iir_filter
     from urh_tpu_torch.dsp.spectrogram import Spectrogram
+    from urh_tpu_torch.dev.backend_handler import BackendHandler
+    from urh_tpu_torch.dsp.continuous_modulator import ContinuousModulator
+    from urh_tpu_torch.protocol.container import ProtocolAnalyzerContainer
+    from urh_tpu_torch.protocol.generator import GeneratorBackend
+    from urh_tpu_torch.protocol.sniffer import ProtocolSniffer
 
+    sniffer = lambda: ProtocolSniffer(100, 0.0, 0.1, 0.1, 5, "FSK", 1, "Network SDR",
+                                      BackendHandler(), network_raw_mode=False)
+    for call in (sniffer, lambda: GeneratorBackend(ProtocolAnalyzerContainer()),
+                 lambda: ContinuousModulator([], [urh_tpu_torch.Modulator()])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
     x = np.ones(20000, np.complex64)  # four samples a pixel of a plot path
     for call in (lambda: fir_filter(x, np.ones(3)), lambda: iir_filter([1.0], [0.5], x),
                  lambda: Filter.fft_convolve_1d(x, np.ones(3)), lambda: Spectrogram(x),

@@ -38,6 +38,7 @@ from urh_tpu_torch.dsp.stream_kernels import I8_SCALE, stream_block, stream_stat
 from urh_tpu_torch.dsp.symbols import (PAUSE_STATE, _initial_state, _run_length_encode,
                                        _symbol_states_device, get_center_thresholds,
                                        pulse_lens_from_runs, symbol_states)
+from urh_tpu_torch.native.build import get_library
 
 # Enough idle to consider a transmission finished (reference gate:
 # ProtocolSniffer.py:231 uses 10 * samples_per_symbol).
@@ -47,6 +48,10 @@ PAUSE_GATE_SYMBOLS = 10
 _BACKEND_VERDICTS: dict = {}
 # blocks whose runs overflowed the bundle, read back as per-sample states
 FALLBACKS = {"states": 0}
+# blocks of the host route by implementation, and run-length encodings by
+# the native library (urh_tpu's size threshold for both: NATIVE_MIN_SAMPLES)
+HOST_ROUTE = {"native_block": 0, "numpy_block": 0, "native_rle": 0}
+NATIVE_MIN_SAMPLES = 1 << 14
 
 
 @dataclass
@@ -105,7 +110,26 @@ def _split_runs_bundle(bundle: np.ndarray):
 
 def _rle(states):
     """(run_states, run_lens) of host or device states (the runs come back
-    to the host)."""
+    to the host).  Host int8 states of NATIVE_MIN_SAMPLES or more go through
+    the native library's encoder where it is built (urh_tpu's host route)."""
+    if (isinstance(states, np.ndarray) and states.dtype == np.int8
+            and len(states) >= NATIVE_MIN_SAMPLES):
+        lib = get_library()
+        if lib is not None:
+            HOST_ROUTE["native_rle"] += 1
+            states = np.ascontiguousarray(states)
+            # start with a realistic cap (runs span >= a few samples in
+            # any real stream); the encoder returns the true count, so an
+            # overflow retries with an exact allocation
+            cap = max(1024, len(states) // 8)
+            while True:
+                run_states = np.empty(cap, dtype=np.int8)
+                run_lens = np.empty(cap, dtype=np.int64)
+                m = lib.urh_rle_i8(states.ctypes.data, len(states), cap,
+                                   run_states.ctypes.data, run_lens.ctypes.data)
+                if m <= cap:
+                    return run_states[:m], run_lens[:m]
+                cap = m
     r_states, _, r_lens = _run_length_encode(states)
     return r_states, r_lens
 
@@ -239,8 +263,9 @@ class StreamDemodulator:
     """Chunked IQ in, message-bearing run segments out.
 
     ``backend``: "device" (the default) runs every block through the
-    fused stream block kernel on ``device``, "host" uses the NumPy twin
-    (same gating/threshold semantics), and "auto" times both once on the
+    fused stream block kernel on ``device``, "host" the host route (the
+    native library's fused block from NATIVE_MIN_SAMPLES samples, else the
+    NumPy twin; same gating/threshold semantics), and "auto" times both once on the
     first block of 4096 samples or more and locks in the faster, as
     urh_tpu's default does (blocks before it run on the device, where
     urh_tpu runs them on the host).  urh_tpu defaults to "auto"; here the
@@ -484,12 +509,30 @@ class StreamDemodulator:
         is the previous chunk's last sample (the FSK discriminator
         history) or None at stream start, where sample 0 carries the
         sentinel like afp_demod.  Skips materializing qad entirely in
-        fixed-center mode."""
+        fixed-center mode.  ASK and FSK chunks of NATIVE_MIN_SAMPLES or more
+        run the native library's fused block where it is built (urh_tpu's
+        host route), with the same states and peak."""
         p = self.params
         thresholds = self._thresholds(p.center)
         noise_sqrd = np.float32(p.noise_threshold) ** 2
         max_mag = np.float32(max_magnitude_for_dtype(self.dtype))
         first = chunk[:1] if prev is None else prev
+
+        lib = (get_library() if not need_qad and p.modulation in ("ASK", "FSK")
+               and len(chunk) >= NATIVE_MIN_SAMPLES else None)
+        if lib is not None:
+            HOST_ROUTE["native_block"] += 1
+            x = np.ascontiguousarray(chunk, dtype=np.float32)
+            thr = np.ascontiguousarray(thresholds, dtype=np.float32)
+            states = np.empty(len(x), dtype=np.int8)
+            peak_out = np.zeros(1, dtype=np.float32)
+            prev_arr = None if prev is None else np.ascontiguousarray(first, np.float32)
+            lib.urh_block_states_f32(
+                x.ctypes.data, len(x), None if prev_arr is None else prev_arr.ctypes.data,
+                float(noise_sqrd), float(max_mag), 0 if p.modulation == "ASK" else 1,
+                thr.ctypes.data, len(thr), states.ctypes.data, peak_out.ctypes.data)
+            return None, states, float(peak_out[0])
+        HOST_ROUTE["numpy_block"] += 1
 
         re, im = chunk[:, 0], chunk[:, 1]
         mag2 = re * re + im * im

@@ -4,7 +4,8 @@ that the port needs).
 The store is urh_tpu's JSON file, ``$XDG_CONFIG_HOME/urh_tpu/settings.json``
 (``~/.config`` without XDG_CONFIG_HOME), so a setting made for urh_tpu, such
 as ``modulation_dtype``, holds for the port too.  The port reads it and
-never writes it.
+never writes it.  The constants and the receive-buffer policy are
+urh_tpu's (``urh_tpu/util/settings.py``).
 """
 
 from __future__ import annotations
@@ -13,6 +14,9 @@ import json
 import os
 
 PIXELS_PER_PATH = 5000  # urh_tpu.util.settings: min/max pairs of a plot path
+SPECTRUM_BUFFER_SIZE = 2 ** 15
+SNIFF_BUFFER_SIZE = 5 * 10 ** 7
+CONTINUOUS_BUFFER_SIZE_MB = 50
 
 _config_dir = os.path.join(
     os.environ.get("XDG_CONFIG_HOME", os.path.join(os.path.expanduser("~"), ".config")),
@@ -21,6 +25,7 @@ _config_dir = os.path.join(
 _settings_file = os.path.join(_config_dir, "settings.json")
 
 _store = None
+OVERWRITE_RECEIVE_BUFFER_SIZE = None  # for tests
 
 
 def _load() -> dict:
@@ -44,3 +49,22 @@ def read(key, default_value=None, type=str):
         return type(value)
     except (TypeError, ValueError):
         return default_value
+
+
+def get_receive_buffer_size(resume_on_full_receive_buffer: bool, spectrum_mode: bool) -> int:
+    """Receive-buffer sizing policy (settings.py:184-213 in the reference)."""
+    if OVERWRITE_RECEIVE_BUFFER_SIZE:
+        return OVERWRITE_RECEIVE_BUFFER_SIZE
+    if resume_on_full_receive_buffer:
+        return SPECTRUM_BUFFER_SIZE if spectrum_mode else SNIFF_BUFFER_SIZE
+    # unlimited-ish: bounded by a RAM-threshold heuristic
+    num_samples = SNIFF_BUFFER_SIZE
+    try:
+        import psutil
+
+        threshold = read("ram_threshold", 0.6, float)
+        available = threshold * psutil.virtual_memory().available
+        num_samples = int(available / 8)
+    except ImportError:
+        pass
+    return min(num_samples, 10 ** 9)
