@@ -122,12 +122,41 @@
    holds every capture with its silence, and the phase fails if its index
    ever wrapped (a wrap splices stale samples into the stream: ROADMAP §C,
    C5); it fails on any exception raised on a thread.
+12. The simulator, on the default device.  A ``ProjectManager`` with Alice
+   (played here) and Bob (simulated), one FSK ``Modulator`` at 100 samples
+   a bit; Alice -> Bob 256 bits (preamble 16, sync 16, sequence number 8
+   and data 200 live, a CRC-16 over both), Bob -> Alice 256 bits (sequence
+   number ``item1.sequence_number + 1``, constant data, the CRC
+   recomputed), 32 rounds, then a counter and a rule that sleeps 0.5 s
+   after the last answer (ROADMAP §C, C7).  The simulator's sniffer (a
+   Network SDR in raw mode, the stream on the card) and its EndlessSender
+   (a Network SDR) run as a user's would; each round Alice sends a fresh
+   random sequence number and data, a pause gate of silence, and once that
+   is fed one gate more, then reads Bob's answer and decodes it with
+   ``demodulate()`` on the card: every answer's sequence number Alice's +
+   1 with a valid CRC, 64 transcript entries in order, no receive timeout,
+   mismatch, lost message or "Devices not ready" in the log, "Finished",
+   one stream block launch a drain with no fallback,
+   ``Modulator.modulate`` on the card 32 times, no exception on a thread;
+   each round's wall printed.
+13. RTL-TCP's live int8 path, on the default device.  A loopback fake
+   rtl_tcp server streams the 2^24-sample FSK capture as unsigned 8-bit
+   IQ (the int8 capture + 128), then two pause gates of silence, and once
+   those are fed one gate more, to a ``ProtocolSniffer(device="RTL-TCP")``
+   through its spawned ``RTLSDRTCP`` child and the int8 receive buffer:
+   all 367 messages bit-exact in order and equal to ``demodulate()``'s of
+   the int8 capture on the card (K2), one ``urh_stream_block_i8`` launch a
+   drain (no float32 ingest, no fallback, no host block), no wrap, the
+   startup commands in the registry's order, the child's exit code 0, no
+   exception on a thread, and a live rate above 3.2 Msps (the RTL2832U's
+   highest); the child's time to connect, the drains and the rate printed.
 
 Every failed check raises.  The last three lines are a JSON ``kernels``
 summary, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``; the two lines before them have the offline PSK wall time, the
 stream's samples per second, the estimate() walls, the TX rate, the
-filter, spectrum, plot path and awre walls, and the live loop's rates.  Without a CUDA card the
+filter, spectrum, plot path and awre walls, the live loop's rates, the
+simulator's round walls and the RTL-TCP rate.  Without a CUDA card the
 script exits non-zero before it prints any result.
 """
 
@@ -1805,11 +1834,11 @@ def wait_for(condition, what: str, deadline_s: float = LIVE_DEADLINE_S):
         time.sleep(0.001)
 
 
-def live_sniffer(device, p):
+def live_sniffer(device, p, start: bool = True):
     """A port ProtocolSniffer on ``device`` with p's parameters, its Network
-    SDR in raw mode on a free port, started; -> (sniffer, its receive server
-    port, a record of drain sizes and of the first sample's and each
-    message's time)."""
+    SDR in raw mode on a free port, started unless ``start`` is False (then
+    the port is None); -> (sniffer, its receive server port, a record of
+    drain sizes and of the first sample's and each message's time)."""
     from urh_tpu_torch.dev.backend_handler import BackendHandler
     from urh_tpu_torch.protocol.sniffer import ProtocolSniffer
 
@@ -1827,6 +1856,8 @@ def live_sniffer(device, p):
     sniffer._ingest = counted_ingest
     sniffer.message_sniffed.connect(lambda _: record["messages"].append(time.perf_counter()))
     sniffer.rcv_device.set_server_port(0)
+    if not start:
+        return sniffer, None, record
     sniffer.sniff()
     server = sniffer.rcv_device.underlying_device.server
     sink = server.sink
@@ -2147,6 +2178,411 @@ def live_phase(device, identity: str, n: int = N_FULL, psk_n: int = B5_TIMED_N) 
     return out
 
 
+# -- the simulator over the live loop, and the RTL-TCP receiver: phases 12, 13 --
+
+SIM_ROUNDS = 32
+# Alice's messages and Bob's answers, 256 bits: the checksum is a CRC-16
+# over the sequence number and the data
+SIM_FIELDS = (("preamble", 0, 16), ("synchronization", 16, 16), ("sequence number", 32, 8),
+              ("data", 40, 200), ("checksum", 240, 16))
+SIM_PREAMBLE, SIM_SYNC = "10" * 8, "1001101001111101"
+SIM_CRC = "16_standard"
+SIM_PAUSE = 1000  # samples after each of Bob's answers: one pause gate
+SIM_TIMEOUT_MS = 30_000
+SIM_FINAL_SLEEP_S = 0.5  # ROADMAP C7: lets the sender's 0.1 s ring poll send the last answer
+CONSTANT, LIVE, FORMULA = 0, 1, 2  # SimulatorProtocolLabel.value_type_index
+RTL_TCP = "RTL-TCP"
+RTL2832U_MAX_RATE = 3.2e6  # samples/s: a live receiver must keep up with it
+
+
+def sim_checksum(body: str) -> str:
+    import array
+
+    from urh_tpu_torch.coding.crc import GenericCRC
+
+    crc = GenericCRC(polynomial=SIM_CRC).calculate(array.array("B", map(int, body)))
+    return "".join(map(str, crc))
+
+
+def sim_message(destination, source, name: str, values: dict, bits: str):
+    """A SimulatorMessage of SIM_FIELDS from ``source`` to ``destination``;
+    ``values``: field name -> (value type index, label attributes)."""
+    from urh_tpu_torch.coding.crc import GenericCRC
+    from urh_tpu_torch.protocol.labels import FieldType, MessageType
+    from urh_tpu_torch.sim.items import SimulatorMessage, SimulatorProtocolLabel
+
+    msg = SimulatorMessage(destination, list(map(int, bits)), pause=SIM_PAUSE,
+                           message_type=MessageType(name), source=source)
+    fields = MessageType(name + " fields")
+    for field, start, length in SIM_FIELDS:
+        field_type = (FieldType("checksum", FieldType.Function.CHECKSUM) if field == "checksum"
+                      else FieldType.from_caption(field))
+        label = fields.add_protocol_label_start_length(start, length, name=field,
+                                                       type=field_type)
+        if field == "checksum":
+            label.checksum = GenericCRC(polynomial=SIM_CRC)
+            label.data_ranges = [[32, 240]]
+        sim_label = SimulatorProtocolLabel(label)
+        sim_label.value_type_index, attrs = values.get(field, (CONSTANT, {}))
+        for key, value in attrs.items():
+            setattr(sim_label, key, value)
+        msg.insert_child(-1, sim_label)
+    return msg
+
+
+def simulator_config(modulator, bob_data: str, rounds: int):
+    """Alice (played by the phase) -> Bob: item1, sequence number and data
+    live, the CRC checked; Bob -> Alice: item2, sequence number
+    ``item1.sequence_number + 1``, ``bob_data``, the CRC recomputed; item3
+    counts the rounds, and item4 sleeps SIM_FINAL_SLEEP_S after the last
+    answer; ``rounds`` rounds.  -> (project manager, configuration, parser)."""
+    from urh_tpu_torch.protocol.labels import Participant
+    from urh_tpu_torch.sim.configuration import SimulatorConfiguration
+    from urh_tpu_torch.sim.expression_parser import SimulatorExpressionParser
+    from urh_tpu_torch.sim.items import (ConditionType, SimulatorCounterAction, SimulatorRule,
+                                         SimulatorRuleCondition, SimulatorSleepAction)
+    from urh_tpu_torch.util.project import ProjectManager
+
+    pm = ProjectManager()
+    alice = Participant("Alice", "A", simulate=False)
+    bob = Participant("Bob", "B", simulate=True)
+    pm.participants = [alice, bob]
+    pm.modulators = [modulator]
+    pm.simulator_num_repeat = rounds
+    pm.simulator_timeout_ms = SIM_TIMEOUT_MS
+    config = SimulatorConfiguration(pm)
+    parser = SimulatorExpressionParser(config)
+    config.attach_expression_parser(parser)
+    blank = SIM_PREAMBLE + SIM_SYNC + "0" * 224
+    heard = sim_message(bob, alice, "alice", {"sequence number": (LIVE, {}),
+                                              "data": (LIVE, {})}, blank)
+    answer = sim_message(alice, bob, "bob", {
+        "sequence number": (FORMULA, {"formula": "item1.sequence_number + 1"})},
+        SIM_PREAMBLE + SIM_SYNC + "0" * 8 + bob_data + "0" * 16)
+    counter = SimulatorCounterAction()
+    rule = SimulatorRule()
+    last_round = SimulatorRuleCondition(ConditionType.IF)
+    last_round.condition = f"item3.counter_value > {rounds}"
+    sleep = SimulatorSleepAction()
+    sleep.sleep_time = SIM_FINAL_SLEEP_S
+    config.add_items([heard, answer, counter, rule], 0, None)
+    config.add_items([last_round], 0, rule)
+    config.add_items([sleep], 0, last_round)
+    if not config.protocol_valid():
+        raise AssertionError("simulator: the configuration is not valid")
+    return pm, config, parser
+
+
+def recv_exactly(conn, n: int) -> bytes:
+    """n bytes from a socket whose timeout bounds each wait."""
+    chunks, got = [], 0
+    while got < n:
+        chunk = conn.recv(min(1 << 20, n - got))
+        if not chunk:
+            raise AssertionError(f"simulator: the sink closed after {got} of {n} bytes")
+        chunks.append(chunk)
+        got += len(chunk)
+    return b"".join(chunks)
+
+
+def simulator_phase(device, identity: str, rounds: int = SIM_ROUNDS) -> dict:
+    """The stateful simulator on ``device`` (None: the card): its sniffer
+    (a Network SDR in raw mode, the stream on the card) hears Alice, played
+    here over one loopback connection, and its EndlessSender answers into a
+    socket read here; every answer is synthesized by Modulator.modulate on
+    the card and decoded here by demodulate() on the card.  Each round Alice
+    sends a message with a fresh random sequence number and data, then one
+    pause gate of silence, and once that is fed one gate more (the
+    channel goes on; it releases the stream's chunk in flight); the round's
+    wall runs from that last gate sent to Bob's answer read.  -> numbers
+    for the summary."""
+    import socket
+
+    import urh_tpu_torch as ut
+    from urh_tpu_torch.core.iq import resolve_device
+    from urh_tpu_torch.dev.backend_handler import BackendHandler
+    from urh_tpu_torch.dev.endless_sender import EndlessSender
+    from urh_tpu_torch.dsp import stream_kernels as sk
+    from urh_tpu_torch.protocol import stream
+    from urh_tpu_torch.sim.simulator import Simulator
+    from urh_tpu_torch.util.metrics import metrics
+
+    rng = np.random.default_rng(29)
+    p = demod_params("FSK", np.float32)
+    bob, alice = (tx_modulator("FSK", 1, [-25e3, 25e3]) for _ in range(2))
+    for m in (bob, alice):
+        m.carrier_freq_hz, m.carrier_phase_deg = 0.0, 0
+    bob_data = "".join(map(str, rng.integers(0, 2, 200)))
+    pm, config, parser = simulator_config(bob, bob_data, rounds)
+    gate = np.zeros((stream.PAUSE_GATE_SYMBOLS * p.samples_per_symbol, 2), np.float32)
+    answer_bytes = (256 * p.samples_per_symbol + SIM_PAUSE) * 8
+    synthesized = []
+    modulate = bob.modulate
+
+    def counted_modulate(*args, **kwargs):
+        synthesized.append(resolve_device(kwargs.get("device")).type)
+        return modulate(*args, **kwargs)
+
+    bob.modulate = counted_modulate
+    for counts in (sk.LAUNCHES, stream.FALLBACKS, stream.HOST_ROUTE):
+        for key in counts:
+            counts[key] = 0
+    metrics.clear()
+    with ThreadFaults() as faults:
+        sniffer, _, record = live_sniffer(device, p, start=False)
+        sender = EndlessSender(BackendHandler(), NETWORK_SDR)
+        sink = socket.socket()
+        sink.bind(("127.0.0.1", 0))
+        sink.listen(1)
+        sink.settimeout(LIVE_DEADLINE_S)
+        sender.device.set_client_port(sink.getsockname()[1])
+        sim = Simulator(config, pm.modulators, parser, pm, sniffer, sender, device=device)
+        t0 = time.perf_counter()
+        sim.start()
+        conn, _ = sink.accept()
+        conn.settimeout(LIVE_DEADLINE_S)
+        alice_tx = socket.create_connection(
+            ("127.0.0.1", sniffer.rcv_device.underlying_device.server_port))
+        sent, walls, heard = 0, [], []
+        for r in range(rounds):
+            seq = int(rng.integers(0, 255))  # its answer, seq + 1, fits 8 bits
+            body = format(seq, "08b") + "".join(map(str, rng.integers(0, 2, 200)))
+            bits = SIM_PREAMBLE + SIM_SYNC + body + sim_checksum(body)
+            heard.append(bits)
+            iq = alice.modulate(bits, pause=0, device=device).data
+            alice_tx.sendall(np.concatenate((iq, gate)).tobytes())
+            sent += len(iq) + len(gate)
+            wait_for(lambda: sniffer.drain_position == sent, f"simulator round {r}: Alice fed")
+            alice_tx.sendall(gate.tobytes())
+            sent += len(gate)
+            t_sent = time.perf_counter()
+            raw = recv_exactly(conn, answer_bytes)
+            walls.append(time.perf_counter() - t_sent)
+            answer = ut.demodulate(np.frombuffer(raw, np.float32).reshape(-1, 2), p,
+                                   device=device)
+            got = [m.plain_bits_str for m in answer]
+            want_head = SIM_PREAMBLE + SIM_SYNC + format(seq + 1, "08b") + bob_data
+            if len(got) != 1 or got[0][:240] != want_head or \
+                    got[0][240:] != sim_checksum(got[0][32:240]):
+                raise AssertionError(f"simulator round {r}: Bob's answer {got} to sequence "
+                                     f"number {seq}")
+            heard.append(got[0])
+        # the receive server's close waits for its connections' handlers
+        alice_tx.close()
+        sim.simulation_thread.join(LIVE_DEADLINE_S)
+        wall = time.perf_counter() - t0
+        conn.close()
+        sink.close()
+        if sim.simulation_thread.is_alive():
+            raise AssertionError("simulator: the simulation did not end")
+        faults.check("simulator")
+    log = "\n".join(sim.log_messages)
+    for fault in ("Receive timeout", "Mismatch", "not received", "Devices not ready"):
+        if fault in log:
+            raise AssertionError(f"simulator: the log has {fault!r}:\n{log}")
+    if "Stop simulation (Finished)" not in log:
+        raise AssertionError(f"simulator: the simulation did not finish:\n{log}")
+    lines = [line for line in sim.transcript.get_for_all_participants(all_rounds=True) if line]
+    want = [f"{i} ({a}): {b}" for k, b in enumerate(heard)
+            for i, a in [("1", "A->B") if k % 2 == 0 else ("2", "B->A")]]
+    if lines != want:
+        raise AssertionError(f"simulator: the transcript ({len(lines)} entries) differs from "
+                             f"the {len(want)} messages exchanged")
+    report = metrics.report()["sniffer.demodulate"]
+    launches = sk.LAUNCHES["stream_block_f32"]
+    if launches != report["calls"] or launches != len(record["drains"]) or not launches or \
+            stream.FALLBACKS["states"] or any(stream.HOST_ROUTE.values()) or \
+            sum(v for k, v in sk.LAUNCHES.items() if k != "stream_block_f32"):
+        raise AssertionError(f"simulator: launches {sk.LAUNCHES} for {report['calls']} drains, "
+                             f"fallbacks {stream.FALLBACKS}, host route {stream.HOST_ROUTE}")
+    if synthesized != [resolve_device(device).type] * rounds:
+        raise AssertionError(f"simulator: Bob's answers synthesized on {synthesized}")
+    out = dict(rounds=rounds, median=statistics.median(walls), max=max(walls), wall=wall,
+               launches=launches, drains=len(record["drains"]))
+    print(f"simulator: {rounds} rounds, every answer sequence number + 1 with a valid CRC, "
+          f"{len(lines)} transcript entries in order, 'Finished'; stream block launches "
+          f"{launches} = drains {report['calls']}, no fallback; Modulator.modulate on "
+          f"{synthesized[0]} {len(synthesized)} times; round walls (Alice's last gate sent -> Bob's answer "
+          f"read, s) {walls}, median {out['median']}, max {out['max']}; the whole simulation "
+          f"{wall} s on {identity}", flush=True)
+    return out
+
+
+class FakeRtlTcpServer:
+    """rtl_tcp on a loopback socket, as tests/test_rtl_tcp.py's
+    FakeRtlTcpServer: the RTL0 greeting, every 5-byte command it receives
+    recorded, and what ``send`` is given streamed as unsigned 8-bit IQ."""
+
+    def __init__(self, tuner_type: int = 5, gain_count: int = 29):
+        import socket
+        import threading
+
+        self.greeting = b"RTL0" + tuner_type.to_bytes(4, "big") + gain_count.to_bytes(4, "big")
+        self.commands, self.conn = [], None
+        self.connected = threading.Event()
+        self._srv = socket.socket()
+        self._srv.bind(("127.0.0.1", 0))
+        self._srv.listen(1)
+        self.port = self._srv.getsockname()[1]
+        self._thread = threading.Thread(target=self._serve, daemon=True)
+        self._thread.start()
+
+    def _serve(self):
+        try:
+            self.conn, _ = self._srv.accept()
+        except OSError:
+            return
+        self.conn.sendall(self.greeting)
+        self.connected.set()
+        buf = b""
+        while True:
+            try:
+                chunk = self.conn.recv(4096)
+            except OSError:
+                break
+            if not chunk:
+                break
+            buf += chunk
+            while len(buf) >= 5:
+                self.commands.append((buf[0], int.from_bytes(buf[1:5], "big")))
+                buf = buf[5:]
+
+    def send(self, data: bytes):
+        if not self.connected.wait(LIVE_DEADLINE_S):
+            raise AssertionError("RTL-TCP: no client connected to the server")
+        self.conn.sendall(data)
+
+    def close(self):
+        import socket
+
+        for sock in (self.conn, self._srv):
+            if sock is not None:
+                try:
+                    sock.shutdown(socket.SHUT_RDWR)
+                except OSError:
+                    pass
+                sock.close()
+        self._thread.join(LIVE_DEADLINE_S)
+
+
+def rtl_tcp_phase(device, identity: str, n: int = N_FULL) -> dict:
+    """RTL-TCP's live int8 path on ``device`` (None: the card): a
+    ProtocolSniffer(device="RTL-TCP") whose spawned RTLSDRTCP child reads a
+    loopback fake rtl_tcp server streaming the int8 FSK capture as unsigned
+    bytes, then two pause gates of silence, and once those are fed one gate
+    more; the bytes reach the int8 receive buffer and the stream's int8
+    ingest on the card.  -> numbers for the summary."""
+    import urh_tpu_torch as ut
+    from urh_tpu_torch.dev.backend_handler import BackendHandler
+    from urh_tpu_torch.dev.rtl_tcp import PARAMETERS
+    from urh_tpu_torch.dsp import stream_kernels as sk
+    from urh_tpu_torch.protocol import stream
+    from urh_tpu_torch.protocol.sniffer import ProtocolSniffer
+    from urh_tpu_torch.util.metrics import metrics
+
+    iq, bits = make_capture("FSK", n, seed=11)
+    i8 = to_int8(iq)
+    offline = [m.plain_bits for m in ut.demodulate(i8, demod_params("FSK", np.int8),
+                                                    device=device)]
+    check_bits(offline, bits, "RTL-TCP: demodulate() of the int8 capture")
+    p = demod_params("FSK", np.float32)  # the stream's noise is in normalized units
+    gate = np.full((stream.PAUSE_GATE_SYMBOLS * p.samples_per_symbol, 2), 128, np.uint8)
+    wire = (i8.astype(np.int16) + 128).astype(np.uint8)
+    for counts in (sk.LAUNCHES, stream.FALLBACKS, stream.HOST_ROUTE):
+        for key in counts:
+            counts[key] = 0
+    metrics.clear()
+    server = FakeRtlTcpServer()
+    record = {"drains": [], "first_sample": None, "messages": []}
+    try:
+        with ThreadFaults() as faults:
+            sniffer = ProtocolSniffer(p.samples_per_symbol, p.center, p.center_spacing,
+                                      p.noise_threshold, p.tolerance, p.modulation,
+                                      p.bits_per_symbol, RTL_TCP, BackendHandler(),
+                                      compute_device=device)
+            dev = sniffer.rcv_device._dev
+            if type(dev).__name__ != "RTLSDRTCP" or sniffer.rcv_device.data_type != np.int8 \
+                    or dev.port != 1234:
+                raise AssertionError(f"RTL-TCP: {type(dev).__name__}, "
+                                     f"{sniffer.rcv_device.data_type}, port {dev.port}")
+            dev.port = server.port  # ROADMAP C6: RTL-TCP keeps 1234 otherwise
+            ingest, commit = sniffer._ingest, dev._commit_samples
+
+            def counted_ingest(chunk):
+                record["drains"].append(len(chunk))
+                ingest(chunk)
+
+            def timed_commit(samples):
+                if record["first_sample"] is None and len(samples):
+                    record["first_sample"] = time.perf_counter()
+                return commit(samples)
+
+            sniffer._ingest, dev._commit_samples = counted_ingest, timed_commit
+            sniffer.message_sniffed.connect(
+                lambda _: record["messages"].append(time.perf_counter()))
+            t0 = time.perf_counter()
+            sniffer.sniff()
+            wait_for(lambda: any("Connected to rtl_tcp" in m for m in dev.device_messages),
+                     "RTL-TCP: the child's connection")
+            connect_s = time.perf_counter() - t0
+            config = dev.receive_process_arguments[2]
+            startup = [(prm.opcode, int(config[prm.startup]) & 0xFFFFFFFF)
+                       for prm in PARAMETERS if prm.startup and prm.startup in config]
+            wait_for(lambda: len(server.commands) >= len(startup),
+                     "RTL-TCP: the startup commands")
+            server.send(wire.tobytes() + np.tile(gate, (LIVE_SILENCE_GATES, 1)).tobytes())
+            total = len(wire) + LIVE_SILENCE_GATES * len(gate)
+            wait_drained(sniffer, total, "RTL-TCP")
+            server.send(gate.tobytes())
+            wait_drained(sniffer, total + len(gate), "RTL-TCP")
+            t0 = time.perf_counter()
+            sniffer.stop()  # joins the child (Device.JOIN_TIMEOUT) before it flushes
+            stop_s = time.perf_counter() - t0
+            if sniffer.rcv_device.current_index != total + len(gate):
+                raise AssertionError(f"RTL-TCP: the receive index wrapped "
+                                     f"({sniffer.rcv_device.current_index})")
+            exitcode = dev.receive_process.exitcode
+            faults.check("RTL-TCP")
+    finally:
+        server.close()
+    got = [m.plain_bits for m in sniffer.messages]
+    check_bits(got, bits, "RTL-TCP")
+    if got != offline:
+        raise AssertionError("RTL-TCP: the sniffer's messages differ from demodulate()'s")
+    if server.commands != startup:
+        raise AssertionError(f"RTL-TCP: the server recorded {server.commands}, not the "
+                             f"registry order {startup}")
+    if exitcode != 0:
+        raise AssertionError(f"RTL-TCP: the child exited {exitcode}")
+    drains = record["drains"]
+    report = metrics.report()["sniffer.demodulate"]
+    launches = sk.LAUNCHES["stream_block_i8"]
+    if launches != len(drains) or launches != report["calls"] or not launches or \
+            stream.FALLBACKS["states"] or any(stream.HOST_ROUTE.values()) or \
+            sum(v for k, v in sk.LAUNCHES.items() if k != "stream_block_i8"):
+        raise AssertionError(f"RTL-TCP: launches {sk.LAUNCHES} for {len(drains)} drains, "
+                             f"fallbacks {stream.FALLBACKS}, host route {stream.HOST_ROUTE}")
+    n_total = total + len(gate)
+    wall = record["messages"][-1] - record["first_sample"]
+    rate = n_total / wall
+    if rate <= RTL2832U_MAX_RATE:
+        raise AssertionError(f"RTL-TCP: {rate} samples/s live, not above the RTL2832U's "
+                             f"{RTL2832U_MAX_RATE}")
+    out = dict(connect_s=connect_s, stop_s=stop_s, drains=len(drains), min=min(drains),
+               median=statistics.median(drains), max=max(drains), wall=wall, rate=rate,
+               launches=launches)
+    print(f"RTL-TCP live int8: {len(got)} messages bit-exact, equal to demodulate()'s on the "
+          f"int8 capture; the child connected {connect_s} s after sniff() and exited 0 "
+          f"in stop(), which took {stop_s} s; "
+          f"startup commands in registry order {[hex(c[0]) for c in startup]}; {len(drains)} "
+          f"drains of min {min(drains)}, median {statistics.median(drains)}, max {max(drains)} "
+          f"samples; urh_stream_block_i8 launches {launches} = drains, no float32 ingest, "
+          f"no fallback, no host block, no wrap; wall from the first sample received to the "
+          f"last message {wall} s ({rate} samples/s; sniffer.demodulate "
+          f"{report['samples_per_second']} samples/s) on {identity}", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
@@ -2190,6 +2626,10 @@ def main():
     elapsed("B8, the filter, spectrum and plot paths and awre")
     live = live_phase(None, identity)  # None: the default device
     elapsed("the live loop")
+    simulated = simulator_phase(None, identity)  # None: the default device
+    elapsed("the simulator")
+    rtl = rtl_tcp_phase(None, identity)
+    elapsed("RTL-TCP")
 
     rows = []
     for key, k in KERNELS.items():
@@ -2221,7 +2661,9 @@ def main():
         rows.append({
             "name": key, "route": "cuda", "source": B6_SOURCE, "replaces": B6_REPLACES,
             "launches": launches[key],
-            **({"live_launches": live["fsk"]["launches"]} if ingest == "f32" else {}),
+            **({"live_launches": live["fsk"]["launches"],
+                "simulator_launches": simulated["launches"]} if ingest == "f32"
+               else {"live_launches": rtl["launches"]}),
             "max_abs_err": b6["err"][ingest],
             "state_mismatches": b6["mismatch"][ingest], "ms": ms,
             "chunk_ms": b6["timings"][(ingest, STREAM_CHUNK)][0], "plain_ms": plain_ms,
@@ -2267,7 +2709,9 @@ def main():
         f"{spectrum_walls}, awre {awre_walls}; live FSK {live['fsk']['rate']} samples/s over "
         f"{live['fsk']['drains']} drains (sniffer.demodulate {live['fsk']['demod_rate']}), "
         f"card busy {live['busy']['share']:.4%}, TX buffer {live['tx']['rate']} samples/s, "
-        f"continuous child's first block {live['continuous']['first_block']} s on {identity}",
+        f"continuous child's first block {live['continuous']['first_block']} s; simulator "
+        f"round median {simulated['median']} s, max {simulated['max']} s; RTL-TCP int8 "
+        f"{rtl['rate']} samples/s, the child connected in {rtl['connect_s']} s on {identity}",
         flush=True)
     print(json.dumps({"kernels": rows}))
     print(identity)

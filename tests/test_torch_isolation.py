@@ -90,6 +90,21 @@ assert not continuous.ring_buffer.is_empty
 continuous.process.join(60)
 assert continuous.process.exitcode == 0, continuous.process.exitcode
 continuous.stop()
+import urh_tpu_torch.dev.device
+import urh_tpu_torch.dev.gr.base_thread
+import urh_tpu_torch.dev.gr.device_table
+import urh_tpu_torch.dev.gr.generate_scripts
+import urh_tpu_torch.dev.native_devices
+import urh_tpu_torch.dev.rtl_tcp
+import urh_tpu_torch.dev.vendor_libs
+import urh_tpu_torch.sim.configuration
+import urh_tpu_torch.sim.expression_parser
+import urh_tpu_torch.sim.items
+import urh_tpu_torch.sim.simulator
+import urh_tpu_torch.util.project
+from urh_tpu_torch.dev.virtual_device import Mode, VirtualDevice
+rtl = VirtualDevice(BackendHandler(), "RTL-TCP", Mode.receive)
+assert type(rtl._dev).__name__ == "RTLSDRTCP" and rtl.data_type == np.int8
 loaded = [m for m in sys.modules if m == "urh_tpu" or m.startswith("urh_tpu.")]
 assert not loaded, loaded
 print("ok")
@@ -101,7 +116,9 @@ def test_demodulates_with_jax_unimportable_and_loads_no_urh_tpu(tmp_path):
     filter_range, the IIR filter, a spectrogram, a plot path, awre, the
     sniffer's ingest, GeneratorBackend and a ContinuousModulator's spawned
     child, in a process where JAX cannot be imported (and, for the child,
-    neither JAX nor urh_tpu)."""
+    neither JAX nor urh_tpu); then the simulator, the project manager and
+    every hardware backend module import, and an RTL-TCP VirtualDevice
+    builds its device."""
     for name in ("jax", "urh_tpu"):
         (tmp_path / name).mkdir()
         (tmp_path / name / "__init__.py").write_text(
@@ -161,8 +178,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
     sniffer = lambda: ProtocolSniffer(100, 0.0, 0.1, 0.1, 5, "FSK", 1, "Network SDR",
                                       BackendHandler(), network_raw_mode=False)
+    from urh_tpu_torch.sim.simulator import Simulator
+
     for call in (sniffer, lambda: GeneratorBackend(ProtocolAnalyzerContainer()),
-                 lambda: ContinuousModulator([], [urh_tpu_torch.Modulator()])):
+                 lambda: ContinuousModulator([], [urh_tpu_torch.Modulator()]),
+                 lambda: Simulator(None, [], None, None, None, None)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     x = np.ones(20000, np.complex64)  # four samples a pixel of a plot path

@@ -395,10 +395,13 @@ def test_device_layer_tables_equal_urh_tpus():
 
 
 def test_native_sdr_backend_raises_until_ported():
-    """A vendor backend raises the ValueError urh_tpu raises where its
-    binding is missing; the none backend builds."""
+    """A native backend builds the device urh_tpu builds (HackRF); a device
+    with no binding in either package (FUNcube) raises the ValueError
+    urh_tpu raises; the none backend builds."""
+    hackrf = VirtualDevice(BackendHandler(testing_mode=True), "HackRF", Mode.receive)
+    assert type(hackrf.underlying_device).__name__ == "HackRF"
     with pytest.raises(ValueError, match="vendor library"):
-        VirtualDevice(BackendHandler(testing_mode=True), "HackRF", Mode.receive)
+        VirtualDevice(BackendHandler(testing_mode=True), "FUNcube", Mode.receive)
     assert VirtualDevice(BackendHandler(), "no such device", Mode.receive).underlying_device \
         is None
 

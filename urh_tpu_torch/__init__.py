@@ -6,10 +6,11 @@ demodulation (chunks -> run segments, :class:`StreamDemodulator`),
 automatic parameter estimation (:func:`estimate`), TX synthesis
 (:class:`Modulator`), filters (``dsp.filters``, ``Signal.filter_range``),
 spectrograms (``dsp.spectrogram``), plot paths (``dsp.decimation``),
-protocol inference (``awre``, ``ProtocolAnalyzer.auto_assign_labels``) and
-the live loop (``protocol.sniffer.ProtocolSniffer`` over the Network SDR,
-``protocol.generator.GeneratorBackend``,
-``dsp.continuous_modulator.ContinuousModulator``) run on a CUDA card, with the kernels written by hand in CUDA C++ (``csrc/``).  Entry points run on the card unless the caller
+protocol inference (``awre``, ``ProtocolAnalyzer.auto_assign_labels``),
+the live loop (``protocol.sniffer.ProtocolSniffer`` over the Network SDR
+or a hardware device such as RTL-TCP, ``protocol.generator.GeneratorBackend``,
+``dsp.continuous_modulator.ContinuousModulator``) and the stateful
+simulator (``sim.simulator.Simulator``) run on a CUDA card, with the kernels written by hand in CUDA C++ (``csrc/``).  Entry points run on the card unless the caller
 passes ``device="cpu"``, where every kernel's plain PyTorch version runs
 instead.  Imports neither JAX nor urh_tpu.
 

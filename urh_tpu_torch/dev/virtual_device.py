@@ -1,9 +1,8 @@
 """VirtualDevice: uniform facade over device backends.
 
 Counterpart of urh/dev/VirtualDevice.py (908 LoC): one API
-(start/stop/data/...) over the device backends, with lifecycle events
-replacing Qt signals.  The port has the Network SDR TCP backend and the
-none backend; a native (vendor) backend raises ValueError.
+(start/stop/data/...) over the native process-runtime backend and the
+Network SDR TCP backend, with lifecycle events replacing Qt signals.
 """
 
 from __future__ import annotations
@@ -91,11 +90,31 @@ class VirtualDevice:
     def _create_native_device(name, freq, sample_rate, bandwidth, gain, if_gain,
                               baseband_gain, resume_on_full_receive_buffer,
                               device_ip, portnumber):
-        # urh_tpu raises the same error where a vendor binding is missing
+        from urh_tpu_torch.dev import native_devices as nd
+
+        if name.replace("-", "") == "rtltcp":
+            from urh_tpu_torch.dev.rtl_tcp import RTLSDRTCP
+
+            return RTLSDRTCP(freq, gain, sample_rate, bandwidth, device_number=0,
+                             resume_on_full_receive_buffer=resume_on_full_receive_buffer)
+        if name == "hackrf":
+            return nd.HackRF(freq, sample_rate, bandwidth, gain, if_gain, baseband_gain,
+                             resume_on_full_receive_buffer)
+        if name == "rad1o":
+            return nd.Rad1o(freq, sample_rate, bandwidth, gain, if_gain, baseband_gain,
+                            resume_on_full_receive_buffer)
+        if name.replace("-", "") == "rtlsdr":
+            return nd.RTLSDR(freq, gain, sample_rate, device_number=0,
+                             resume_on_full_receive_buffer=resume_on_full_receive_buffer)
+        scaffolds = {"usrp": nd.USRP, "limesdr": nd.LimeSDR, "bladerf": nd.BladeRF,
+                     "plutosdr": nd.PlutoSDR, "sdrplay": nd.SDRPlay,
+                     "airspy r2": nd.AirSpy, "airspy mini": nd.AirSpy,
+                     "soundcard": nd.SoundCard}
+        if name in scaffolds:
+            return scaffolds[name](freq, sample_rate, bandwidth, gain, if_gain,
+                                   baseband_gain, resume_on_full_receive_buffer)
         raise ValueError(
-            f"native backend for {name} requires its vendor library binding: "
-            "urh_tpu_torch has no hardware backends yet (urh_tpu.dev.native_devices, "
-            "rtl_tcp and gr are still to be ported); use the Network SDR")
+            f"native backend for {name} requires its vendor library binding")
 
     # -- properties --------------------------------------------------------
     @property

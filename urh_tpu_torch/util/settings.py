@@ -4,8 +4,10 @@ that the port needs).
 The store is urh_tpu's JSON file, ``$XDG_CONFIG_HOME/urh_tpu/settings.json``
 (``~/.config`` without XDG_CONFIG_HOME), so a setting made for urh_tpu, such
 as ``modulation_dtype``, holds for the port too.  The port reads it and
-never writes it.  The constants and the receive-buffer policy are
-urh_tpu's (``urh_tpu/util/settings.py``).
+never writes it.  The constants, the receive-buffer policy and the
+decoding chain names are urh_tpu's (``urh_tpu/util/settings.py``).
+``config_dir()`` also holds the user's ``decodings.txt``, which
+``util/project.py`` reads and writes: that file is not the store.
 """
 
 from __future__ import annotations
@@ -26,6 +28,10 @@ _settings_file = os.path.join(_config_dir, "settings.json")
 
 _store = None
 OVERWRITE_RECEIVE_BUFFER_SIZE = None  # for tests
+
+
+def config_dir() -> str:
+    return _config_dir
 
 
 def _load() -> dict:
@@ -68,3 +74,19 @@ def get_receive_buffer_size(resume_on_full_receive_buffer: bool, spectrum_mode: 
     except ImportError:
         pass
     return min(num_samples, 10 ** 9)
+
+
+# -- decoding chain name constants (settings.py:89-102 in the reference) --
+DECODING_INVERT = "Invert"
+DECODING_DIFFERENTIAL = "Differential Encoding"
+DECODING_REDUNDANCY = "Remove Redundancy"
+DECODING_DATAWHITENING = "Remove Data Whitening (CC1101)"
+DECODING_CARRIER = "Remove Carrier"
+DECODING_BITORDER = "Change Bitorder"
+DECODING_EDGE = "Edge Trigger"
+DECODING_SUBSTITUTION = "Substitution"
+DECODING_EXTERNAL = "External Program"
+DECODING_ENOCEAN = "Wireless Short Packet (WSP)"
+DECODING_CUT = "Cut before/after"
+DECODING_MORSE = "Morse Code"
+DECODING_DISABLED_PREFIX = "[Disabled] "
