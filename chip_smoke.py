@@ -150,22 +150,48 @@
    startup commands in the registry's order, the child's exit code 0, no
    exception on a thread, and a live rate above 3.2 Msps (the RTL2832U's
    highest); the child's time to connect, the drains and the rate printed.
+14. Sharding and distribution.  B9, the batch of Costas streams, against
+   its plain version on every word and final carry for C = 1, 2, 3, 33,
+   132 and one past the streams the card runs at once (the occupancy API's
+   blocks an SM times the SMs), L = 1, 2, 3, 31, 32, 33, 2049 and 5000,
+   loop orders 2 and 4, rows 16-byte aligned and half a chunk late, every
+   7th row wholly gated, carries of phase 1.5, +-13 and +-100, and at C =
+   132, L = 4096 where its plain time is taken; on the 2^22-sample BPSK
+   capture's streams at C = 8 and 132 (margin 4096) against the plain
+   batch (each row in pieces of 2,048 samples from the kernel's carries
+   there, every piece's end carry checked) and against B5 row by row, and
+   timed there beside its chain bound.  Then, on 8
+   shards of the default device: ``sharded_demodulate`` of the 2^24-sample
+   FSK and ASK captures (float32) equal to the unsharded
+   ``afp_demod_vec`` and ``symbol_states`` to the bit, and
+   ``sharded_pulse_lens`` decoding all 367 messages of each;
+   ``sharded_fir_filter`` (the 51-tap band-pass) within 1e-2 of
+   ``fir_filter`` and ``sharded_spectrogram`` within 1e-4 of
+   ``Spectrogram.stft``; ``sharded_psk_demod_exact`` equal to
+   ``afp_demod`` to the bit (8 B5 launches); ``sharded_psk_demod`` at C =
+   8 and 132 (one B9 launch each), its exact messages of the 91 printed,
+   not asserted; then ``distributed_pulse_lens`` and
+   ``distributed_psk_demod_exact`` at world size 1 on NCCL in a spawned
+   child, reading raw captures with ``read_capture_slice``, equal to the
+   sharded results.  Walls printed.
 
 Every failed check raises.  The last three lines are a JSON ``kernels``
 summary, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``; the two lines before them have the offline PSK wall time, the
 stream's samples per second, the estimate() walls, the TX rate, the
 filter, spectrum, plot path and awre walls, the live loop's rates, the
-simulator's round walls and the RTL-TCP rate.  Without a CUDA card the
-script exits non-zero before it prints any result.
+simulator's round walls, the RTL-TCP rate and the sharding walls.  Without
+a CUDA card the script exits non-zero before it prints any result.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -2583,6 +2609,377 @@ def rtl_tcp_phase(device, identity: str, n: int = N_FULL) -> dict:
     return out
 
 
+B9_CS = (1, 2, 3, 33, 132)  # streams a launch, and one past the resident count
+B9_LS = (1, 2, 3, 31, 32, 33, 2049, 5000)
+B9_MAIN_CS = (8, 132)  # shards of the 2^22-sample BPSK capture
+B9_MARGIN = 4096
+B9_PLAIN_L = 1 << 12  # the plain batch at C = 132 is timed at this length
+B9_REPLACES = "urh_tpu/parallel/sharded.py:263"
+SHARDS = 8
+FIR_SHARDED_ATOL = 1e-2  # tests/test_torch_filters.py: 40,000 samples and more
+STFT_ATOL = 1e-4  # tests/test_sharded.py:105
+DIST_TIMEOUT_S = 300
+
+
+def b9_bound_ms(streams: torch.Tensor, noise_sqrd: float, resident: int,
+                clock_hz: float) -> tuple[float, str]:
+    """B9's least time on these (C, L, 2) streams: the chain of the row with
+    the most samples above the gate (the loop steps those and skips the
+    rest), once a wave of ``resident`` streams, at B5's cycles a sample;
+    or its bytes (each sample read, each qad written) at the HBM rate."""
+    stepped = int(((streams * streams).sum(-1) > noise_sqrd).sum(1).max()) if len(streams) \
+        else 0
+    waves = -(-len(streams) // resident)
+    chain_ms = waves * stepped * B5_CHAIN_CYCLES / clock_hz * 1e3
+    byte_ms = streams.shape[0] * streams.shape[1] * B5_BYTES_PER_SAMPLE / HBM_BYTES_PER_S * 1e3
+    return max(chain_ms, byte_ms), "operations" if chain_ms >= byte_ms else "bytes"
+
+
+def b9_rows(c: int, n: int, seed: int, offset: int, device):
+    """(c, n, 2) streams with gated stretches, every 7th row wholly gated,
+    from an allocation ``offset`` samples in (a row then starts 16-byte
+    aligned or half a chunk late), and (c, 2) carries from the default to
+    far outside the loop's range."""
+    rng = np.random.default_rng(seed)
+    raw = rng.normal(0, 0.5, (c * n + offset, 2)).astype(np.float32)
+    x = raw[offset:].reshape(c, n, 2)
+    x[:, n // 3:n // 3 + 40] *= 0.001
+    x[6::7] *= 0.001
+    buf = torch.from_numpy(raw).to(device)
+    phases = np.resize((1.5, *B5_FAR_PHASES, 0.3), c)
+    carry = np.stack((phases, np.resize((0.0, 0.5, -0.5), c)), 1).astype(np.float32)
+    return buf[offset:].view(c, n, 2), torch.from_numpy(carry).to(device)
+
+
+def b9_main_streams_check(streams: torch.Tensor, got: torch.Tensor, final: torch.Tensor,
+                          noise_sqrd: float, scale: float, shift: float, bandwidth: float,
+                          piece: int = B5_PIECE) -> tuple[float, int]:
+    """B9's words ``got`` and final carries ``final`` from one launch over
+    the main path's (C, L, 2) streams, each from (1.5, 0), against the
+    plain batch.  The plain loop steps sample by sample, so it runs each
+    row in pieces of ``piece`` samples, every piece of every row stepped
+    together, each from the carry the kernel holds at its start (B9 run
+    piece by piece over all the rows).  Each piece must end on the next
+    piece's starting carry and the last on the one-shot final carries, so
+    the plain loop checks every row's whole chain.  Loop order 2, as
+    sharded_psk_demod runs BPSK.  -> (max abs error, word and carry
+    mismatches)."""
+    from urh_tpu_torch.dsp import costas
+
+    alpha, beta = costas.costas_alpha_beta(bandwidth)
+    c, n = streams.shape[:2]
+    n_pieces = -(-n // piece)
+    padded = streams.new_zeros((c, n_pieces * piece, 2))
+    padded[:, :n] = streams  # zero samples pad the last piece: gated, they keep the carry
+    carry, starts = costas.new_carry(streams.device).repeat(c, 1), []
+    for a in range(0, n, piece):
+        starts.append(carry.clone())
+        costas.costa_demod_scan_batch(streams[:, a:a + piece].contiguous(), noise_sqrd, scale,
+                                      shift, 2, bandwidth, carry)
+    starts = torch.stack(starts, 1)
+    want, phases, freqs = costas.costa_demod_scan_plain(
+        padded.view(c * n_pieces, piece, 2), noise_sqrd, scale, shift, 2, alpha, beta,
+        starts[..., 0].reshape(-1), starts[..., 1].reshape(-1))
+    want = want.view(c, -1)[:, :n]
+    ends = torch.stack((phases, freqs), 1).view(c, n_pieces, 2)
+    e = (got - want).abs().max().item()
+    bad = (int((got != want).sum()) + int((ends[:, :-1] != starts[:, 1:]).sum())
+           + int((ends[:, -1] != final).sum()))
+    print(f"costas batch at C={c} L={n} against the plain batch in {c} x {n_pieces} pieces "
+          f"of {piece}: max_abs_err {e}, mismatching words and carries {bad}", flush=True)
+    return e, bad
+
+
+def b9_phase(device, clock_hz: float, cs=B9_CS, ls=B9_LS, main_cs=B9_MAIN_CS,
+             main_n=B5_TIMED_N, margin=B9_MARGIN, plain_l=B9_PLAIN_L,
+             resident=None) -> dict:
+    """B9 against its plain version on every word and final carry, for
+    each C of ``cs`` and one past the resident count, each L of ``ls`` and
+    both loop orders (one plain call over every C's rows at once: the rows
+    are independent); then on the main path's streams of the BPSK capture
+    (shards of main_n samples after a margin) at each C of ``main_cs``
+    against the plain batch (b9_main_streams_check) and against B5 row by
+    row, on every word and carry; timed there; last against the plain
+    batch it times at C = max(main_cs), L = plain_l (``resident``: the
+    streams a launch runs at once, from the occupancy API when None)."""
+    from urh_tpu_torch.core.iq import normalize_scale_shift
+    from urh_tpu_torch.dsp import costas
+    from urh_tpu_torch.parallel import sharded
+
+    resident = costas.batch_resident_streams(device) if resident is None else resident
+    cs = (*cs, resident + 1)
+    nsq = float(np.float32(B5_NOISE ** 2))
+    alpha, beta = costas.costas_alpha_beta(0.1)
+    err, mismatch = 0.0, 0
+    for n in ls:
+        rows = [b9_rows(c, n, seed=c * 7919 + n, offset=i % 2, device=device)
+                for i, c in enumerate(cs)]
+        x_all = torch.cat([x for x, _ in rows])
+        carry_all = torch.cat([c for _, c in rows])
+        for order in B5_ORDERS:
+            want, phase, freq = costas.costa_demod_scan_plain(
+                x_all, nsq, 1.0, 0.0, order, alpha, beta, carry_all[:, 0], carry_all[:, 1])
+            got, got_carry = [], []
+            for x, start in rows:
+                carry = start.clone()
+                got.append(costas.costa_demod_scan_batch(x, nsq, 1.0, 0.0, order, 0.1, carry))
+                got_carry.append(carry)
+            torch.cuda.synchronize()
+            got, got_carry = torch.cat(got), torch.cat(got_carry)
+            e = (got - want).abs().max().item() if got.numel() else 0.0
+            bad = int((got != want).sum()) + int(
+                (got_carry != torch.stack((phase, freq), 1)).sum())
+            err, mismatch = max(err, e), mismatch + bad
+        print(f"costas batch L={n} C={cs}: against the plain batch, orders {B5_ORDERS}: "
+              f"max_abs_err so far {err}, mismatching words and carries so far {mismatch}",
+              flush=True)
+
+    p = psk_params()
+    psk_nsq = float(np.float32(p.noise_threshold * p.noise_threshold))
+    scale, shift = normalize_scale_shift(np.float32)
+    iq = make_psk_capture(main_n, seed=13)[0]
+    timings = {}
+    for c in main_cs:
+        mesh = sharded.make_mesh(c, device=device)
+        x, _ = sharded.pad_to_blocks(iq, c)
+        ((_, streams),) = sharded.costas_streams(mesh, sharded.shard_blocks(x, mesh),
+                                                 min(margin, len(x) // c))
+        carry = costas.new_carry(device).repeat(c, 1)
+        got = costas.costa_demod_scan_batch(streams, psk_nsq, scale, shift, 2,
+                                            p.costas_loop_bandwidth, carry)
+        bad = 0
+        for row in range(c):
+            one = costas.new_carry(device)
+            want = costas.costa_demod_scan(streams[row], psk_nsq, scale, shift, 2,
+                                           p.costas_loop_bandwidth, one)
+            bad += int((got[row] != want).sum()) + int((carry[row] != one).sum())
+        torch.cuda.synchronize()
+        e, plain_bad = b9_main_streams_check(streams, got, carry, psk_nsq, scale, shift,
+                                             p.costas_loop_bandwidth)
+        err, mismatch = max(err, e), mismatch + bad + plain_bad
+        init = costas.new_carry(device).repeat(c, 1)
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+        ms = time_ms(lambda: costas.costa_demod_scan_batch(
+            streams, psk_nsq, scale, shift, 2, p.costas_loop_bandwidth, carry),
+            flush, before=lambda: carry.copy_(init))
+        bound, bound_by = b9_bound_ms(streams, psk_nsq, resident, clock_hz)
+        timings[c] = dict(ms=ms, n=streams.shape[1], bound_ms=bound, bound_by=bound_by)
+        print(f"costas batch on the BPSK capture's streams, C={c} L={streams.shape[1]} "
+              f"(margin {streams.shape[1] - len(x) // c}): against B5 row by row "
+              f"{bad} mismatching words and carries; {ms} ms (median of {TIMED_RUNS} after "
+              f"3 warm-ups), bound {bound} ms ({bound_by}), {bound / ms:.1%}", flush=True)
+    if err > 0.0 or mismatch:
+        raise AssertionError(f"costas batch: max_abs_err {err}, {mismatch} mismatches")
+
+    xp, start = b9_rows(max(main_cs), plain_l, seed=3, offset=0, device=device)
+    plain = []
+    plain_ms = time_ms(lambda: plain.append(costas.costa_demod_scan_plain(
+        xp, nsq, 1.0, 0.0, 2, alpha, beta, start[:, 0], start[:, 1])), runs=1, warmup=0)
+    want, phase, freq = plain[-1]
+    carry = start.clone()
+    got = costas.costa_demod_scan_batch(xp, nsq, 1.0, 0.0, 2, 0.1, carry)
+    torch.cuda.synchronize()
+    e = (got - want).abs().max().item()
+    bad = int((got != want).sum()) + int((carry != torch.stack((phase, freq), 1)).sum())
+    err, mismatch = max(err, e), mismatch + bad
+    print(f"costas batch: {resident} resident streams; plain batch {plain_ms} ms at "
+          f"C={max(main_cs)} L={plain_l} (1 run), the kernel against it: max_abs_err {e}, "
+          f"mismatching words and carries {bad}", flush=True)
+    if err > 0.0 or mismatch:
+        raise AssertionError(f"costas batch: max_abs_err {err}, {mismatch} mismatches")
+    return dict(err=err, mismatch=mismatch, timings=timings, plain_ms=plain_ms,
+                plain_shape=(max(main_cs), plain_l), resident=resident)
+
+
+def psk_bit_lists(qad, p) -> list:
+    """The messages' bits of a PSK qad, as demodulate() gets them."""
+    from urh_tpu_torch.dsp import symbols
+    from urh_tpu_torch.protocol.analyzer import ProtocolAnalyzer
+
+    pulses = symbols.grab_pulse_lens(torch.as_tensor(qad), p.center, p.tolerance,
+                                     p.modulation, p.samples_per_symbol, p.bits_per_symbol,
+                                     p.center_spacing)
+    return ProtocolAnalyzer._ppseq_to_bits(pulses, p.samples_per_symbol, p.bits_per_symbol,
+                                           pause_threshold=p.pause_threshold)[0]
+
+
+def distributed_child(device: str, folder: str, port: int, shards: int):
+    """One rank (world size 1) of the distributed pipeline, NCCL on the card
+    (gloo on the CPU): reads the FSK and BPSK captures with
+    read_capture_slice, writes distributed_pulse_lens,
+    distributed_psk_demod_exact and the Costas launch counts to
+    folder/rank0.npz."""
+    from urh_tpu_torch.dsp import costas
+    from urh_tpu_torch.parallel import distributed as dist
+
+    t0 = time.perf_counter()
+    dist.initialize(f"localhost:{port}", 1, 0, device=device)
+    backend = torch.distributed.get_backend()
+    p = demod_params("FSK", np.float32)
+    fsk = dist.read_capture_slice(f"{folder}/fsk.raw", np.float32)
+    psk = dist.read_capture_slice(f"{folder}/psk.raw", np.float32)
+    mesh = dist.global_mesh(shards, device=device)
+    pulses = dist.distributed_pulse_lens(fsk, p.noise_threshold, "FSK", p.center,
+                                         p.center_spacing, 1, p.tolerance,
+                                         p.samples_per_symbol, mesh=mesh)
+    q = psk_params()
+    before = costas.LAUNCHES["costas_f32"]
+    offset, qad = dist.distributed_psk_demod_exact(psk, q.noise_threshold, 2,
+                                                   q.costas_loop_bandwidth, device=device)
+    launches = costas.LAUNCHES["costas_f32"] - before
+    dist.shutdown()
+    np.savez(f"{folder}/rank0.npz", pulses=pulses, qad=qad, offset=offset, launches=launches,
+             backend=backend, wall=time.perf_counter() - t0)
+
+
+def distributed_world_one(device, fsk: np.ndarray, psk: np.ndarray,
+                          shards: int = SHARDS) -> dict:
+    """distributed_child in a spawned process, on raw captures written under
+    build/; -> its results."""
+    import socket
+
+    folder = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    os.makedirs(folder, exist_ok=True)
+    fsk.tofile(f"{folder}/fsk.raw")
+    psk.tofile(f"{folder}/psk.raw")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    code = (f"import chip_smoke; chip_smoke.distributed_child({str(device)!r}, {folder!r}, "
+            f"{port}, {shards})")
+    t0 = time.perf_counter()
+    child = subprocess.Popen([sys.executable, "-c", code],
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        rc = child.wait(timeout=DIST_TIMEOUT_S)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if rc != 0:
+        raise AssertionError(f"distributed child exited {rc}")
+    with np.load(f"{folder}/rank0.npz") as out:
+        result = {k: out[k] for k in out.files}
+    result["child_wall"] = time.perf_counter() - t0
+    for name in ("fsk.raw", "psk.raw", "rank0.npz"):
+        os.remove(f"{folder}/{name}")
+    return result
+
+
+def sharding_phase(device, identity: str, n: int = N_FULL, psk_n: int = B5_TIMED_N,
+                   shards: int = SHARDS, main_cs=B9_MAIN_CS, margin: int = B9_MARGIN) -> dict:
+    """The sharded pipeline on ``shards`` shards of ``device`` (None: the
+    card), against the unsharded port on the same device: demod and
+    states of the FSK and ASK captures to the bit, their pulses decoding
+    every message; the FIR filter and the STFT within their tolerances;
+    the exact PSK to the bit (one B5 launch a shard); the block-parallel
+    PSK at each C of main_cs (one B9 launch a call), its exact messages
+    printed; then the distributed pipeline at world size 1 in a spawned
+    child (NCCL on the card) against the sharded results.  Launch counts
+    from a reset before the first call.  -> numbers for the summary."""
+    from urh_tpu_torch.core.iq import max_magnitude_for_dtype, resolve_device
+    from urh_tpu_torch.dsp import demod, filters, symbols
+    from urh_tpu_torch.dsp.filters import Filter
+    from urh_tpu_torch.dsp.spectrogram import Spectrogram
+    from urh_tpu_torch.parallel import sharded
+    from urh_tpu_torch.protocol.analyzer import ProtocolAnalyzer
+
+    dev = resolve_device(device)
+    mesh = sharded.make_mesh(shards, device=dev)
+    q = psk_params()
+    psk_iq, psk_bits = make_psk_capture(psk_n, seed=13)
+    offline = demod.afp_demod(psk_iq, q.noise_threshold, "PSK", 2, q.costas_loop_bandwidth,
+                              device=dev).cpu().numpy()
+    reset_launches()
+    walls = {}
+
+    def timed(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        return out
+
+    for kind, seed in (("FSK", 11), ("ASK", 12)):
+        iq, bits = make_capture(kind, n, seed)
+        p = demod_params(kind, np.float32)
+        args = (iq, p.noise_threshold, kind, p.center, p.center_spacing, 1)
+        qad, states = timed(f"sharded_demodulate {kind}",
+                            lambda: sharded.sharded_demodulate(*args, mesh=mesh))
+        x = torch.from_numpy(iq).to(dev)
+        want = demod.afp_demod_vec(x, float(np.float32(p.noise_threshold ** 2)),
+                                   max_magnitude_for_dtype(np.float32), kind)
+        want_states = symbols.symbol_states(want, symbols.get_center_thresholds(
+            p.center, p.center_spacing, 2), demod.noise_sentinel(kind))
+        bad = int((torch.from_numpy(qad).to(dev) != want).sum()) + int(
+            (torch.from_numpy(states).to(dev) != want_states).sum())
+        if bad:
+            raise AssertionError(f"sharded_demodulate {kind}: {bad} words differ from the "
+                                 f"unsharded afp_demod_vec and symbol_states")
+        pulses = timed(f"sharded_pulse_lens {kind}", lambda: sharded.sharded_pulse_lens(
+            *args, p.tolerance, p.samples_per_symbol, mesh=mesh))
+        bit_lists = ProtocolAnalyzer._ppseq_to_bits(pulses, p.samples_per_symbol, 1,
+                                                    pause_threshold=p.pause_threshold)[0]
+        check_bits(bit_lists, bits, f"sharded_pulse_lens {kind}")
+        print(f"sharded {kind} float32 on {shards} shards: qad and states equal the "
+              f"unsharded ones to the bit; {len(bit_lists)} messages bit-exact", flush=True)
+        if kind == "FSK":
+            fsk_iq, fsk_pulses = iq, pulses
+            cx = iq[:, 0] + 1j * iq[:, 1]
+            taps = Filter.design_windowed_sinc_bandpass(*BANDPASS)
+            got = timed("sharded_fir_filter", lambda: sharded.sharded_fir_filter(
+                cx, taps, mesh=mesh))
+            fir_err = float(np.abs(got - filters.fir_filter(cx, taps, device=dev)).max())
+            stft = timed("sharded_spectrogram", lambda: sharded.sharded_spectrogram(
+                cx, mesh=mesh))
+            single = Spectrogram(cx, window_size=1024, device=dev).stft(cx)
+            stft_err = float(np.abs(stft - single).max()) if stft.shape == single.shape \
+                else math.inf
+            print(f"sharded_fir_filter ({len(taps)} taps) against fir_filter: max_abs_err "
+                  f"{fir_err}; sharded_spectrogram {stft.shape} against Spectrogram.stft: "
+                  f"max_abs_err {stft_err}", flush=True)
+            if fir_err > FIR_SHARDED_ATOL or stft_err > STFT_ATOL:
+                raise AssertionError(f"sharded FIR {fir_err} or STFT {stft_err} off")
+
+    exact = timed("sharded_psk_demod_exact", lambda: sharded.sharded_psk_demod_exact(
+        psk_iq, q.noise_threshold, 2, q.costas_loop_bandwidth, mesh=mesh))
+    if not np.array_equal(exact, offline):
+        raise AssertionError("sharded_psk_demod_exact differs from afp_demod")
+    exact_msgs = count_exact(psk_bit_lists(exact, q), psk_bits)
+    relocked = {}
+    for c in main_cs:
+        qad = timed(f"sharded_psk_demod C={c}", lambda: sharded.sharded_psk_demod(
+            psk_iq, q.noise_threshold, 2, q.costas_loop_bandwidth, margin,
+            mesh=sharded.make_mesh(c, device=dev)))
+        relocked[c] = count_exact(psk_bit_lists(qad, q), psk_bits)
+    launches = read_launches()
+    print(f"sharded PSK: exact equal to afp_demod to the bit ({exact_msgs} of "
+          f"{len(psk_bits)} messages exact); block-parallel with a {margin}-sample margin "
+          f"decodes " + ", ".join(f"{k} of {len(psk_bits)} at C={c}"
+                                  for c, k in relocked.items())
+          + f" (not asserted); launches {launches}", flush=True)
+    want = {"costas_batch_f32": len(main_cs), "costas_f32": shards}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"sharding launches {launches}, expected {want}")
+
+    child = distributed_world_one(dev, fsk_iq, psk_iq, shards)
+    # the child's launch count: on the card (the plain loop counts none)
+    if not np.array_equal(child["pulses"], fsk_pulses) or int(child["offset"]) != 0 \
+            or not np.array_equal(child["qad"], exact) \
+            or (dev.type == "cuda" and int(child["launches"]) != 1):
+        raise AssertionError(f"distributed world size 1 ({child['backend']}) differs from the "
+                             f"sharded results (B5 launches {child['launches']})")
+    print(f"distributed, world size 1 on {child['backend']}: distributed_pulse_lens and "
+          f"distributed_psk_demod_exact equal the sharded results (B5 launches "
+          f"{child['launches']}); child wall "
+          f"{child['child_wall']} s, of it {child['wall']} s from initialize to shutdown",
+          flush=True)
+    print("sharding walls (s): " + "; ".join(f"{k} {v}" for k, v in walls.items())
+          + f" on {identity}", flush=True)
+    return dict(launches=launches, walls=walls, relocked=relocked, exact_msgs=exact_msgs,
+                child_wall=child["child_wall"], backend=str(child["backend"]))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
@@ -2630,6 +3027,9 @@ def main():
     elapsed("the simulator")
     rtl = rtl_tcp_phase(None, identity)
     elapsed("RTL-TCP")
+    b9 = b9_phase("cuda", clock)
+    sharding = sharding_phase(None, identity)  # None: the default device
+    elapsed("B9 and the sharded and distributed paths")
 
     rows = []
     for key, k in KERNELS.items():
@@ -2693,6 +3093,16 @@ def main():
         "plain_n": B8_PLAIN_N, "bound_ms": bound, "bound_by": bound_by,
         "chain_cycles": b8["cycles"], "library_ms": None,
     })
+    main_c, wide_c = B9_MAIN_CS
+    rows.append({
+        "name": "costa_demod_scan_batch", "route": "cuda", "source": B5_SOURCE,
+        "replaces": B9_REPLACES, "launches": sharding["launches"]["costas_batch_f32"],
+        "max_abs_err": b9["err"], "mismatching_words": b9["mismatch"],
+        **b9["timings"][main_c], "streams": main_c, "plain_ms": b9["plain_ms"],
+        "plain_streams": b9["plain_shape"][0], "plain_n": b9["plain_shape"][1],
+        "library_ms": None, "resident_streams": b9["resident"],
+        **{f"wide_{k}": v for k, v in b9["timings"][wide_c].items()}, "wide_streams": wide_c,
+    })
     for row in rows:
         print(f"{row['name']}: {row['ms']:.4f} ms (bound {row['bound_ms']:.4f} ms, "
               f"{row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
@@ -2711,8 +3121,10 @@ def main():
         f"card busy {live['busy']['share']:.4%}, TX buffer {live['tx']['rate']} samples/s, "
         f"continuous child's first block {live['continuous']['first_block']} s; simulator "
         f"round median {simulated['median']} s, max {simulated['max']} s; RTL-TCP int8 "
-        f"{rtl['rate']} samples/s, the child connected in {rtl['connect_s']} s on {identity}",
-        flush=True)
+        f"{rtl['rate']} samples/s, the child connected in {rtl['connect_s']} s; sharding "
+        f"{sharding['walls']}, the distributed child ({sharding['backend']}) "
+        f"{sharding['child_wall']} s, block-parallel PSK messages exact "
+        f"{sharding['relocked']} on {identity}", flush=True)
     print(json.dumps({"kernels": rows}))
     print(identity)
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,11 @@ sys.path.insert(0, sys.argv[1])  # packages jax and urh_tpu there raise, in spaw
 import numpy as np
 import urh_tpu_torch as ut
 
+
+def message_bits(pulses):
+    bits, _, _ = ut.ProtocolAnalyzer._ppseq_to_bits(pulses, 100, 1)
+    return ["".join(map(str, b)) for b in bits]
+
 bits = np.array([1, 0, 1, 1, 0, 0, 1, 0] * 4)
 phase = np.cumsum(np.repeat(np.where(bits == 1, 0.12, -0.12), 100))
 iq = np.zeros((len(phase) + 2000, 2), np.float32)
@@ -105,6 +110,13 @@ import urh_tpu_torch.util.project
 from urh_tpu_torch.dev.virtual_device import Mode, VirtualDevice
 rtl = VirtualDevice(BackendHandler(), "RTL-TCP", Mode.receive)
 assert type(rtl._dev).__name__ == "RTLSDRTCP" and rtl.data_type == np.int8
+from urh_tpu_torch.parallel import distributed, sharded
+mesh = sharded.make_mesh(8, device="cpu")
+pulses = sharded.sharded_pulse_lens(iq, 0.1, "FSK", 0.0, 1.0, 1, 5, 100, mesh=mesh)
+assert message_bits(pulses) == ["".join(map(str, bits))]
+assert sharded.sharded_psk_demod(iq[:2000], 0.1, mesh=mesh).shape == (2000,)
+assert len(distributed.distributed_fir_filter(iq[:, 0], [1.0, 0.5],
+                                              mesh=distributed.global_mesh(2, device="cpu"))) == 2
 loaded = [m for m in sys.modules if m == "urh_tpu" or m.startswith("urh_tpu.")]
 assert not loaded, loaded
 print("ok")
@@ -117,8 +129,9 @@ def test_demodulates_with_jax_unimportable_and_loads_no_urh_tpu(tmp_path):
     sniffer's ingest, GeneratorBackend and a ContinuousModulator's spawned
     child, in a process where JAX cannot be imported (and, for the child,
     neither JAX nor urh_tpu); then the simulator, the project manager and
-    every hardware backend module import, and an RTL-TCP VirtualDevice
-    builds its device."""
+    every hardware backend module import, an RTL-TCP VirtualDevice builds
+    its device, and the sharded pipeline (demod to bits, block-parallel
+    PSK) and a distributed FIR outside a process group run."""
     for name in ("jax", "urh_tpu"):
         (tmp_path / name).mkdir()
         (tmp_path / name / "__init__.py").write_text(
@@ -180,9 +193,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
                                       BackendHandler(), network_raw_mode=False)
     from urh_tpu_torch.sim.simulator import Simulator
 
+    from urh_tpu_torch.parallel import distributed, sharded
+
     for call in (sniffer, lambda: GeneratorBackend(ProtocolAnalyzerContainer()),
                  lambda: ContinuousModulator([], [urh_tpu_torch.Modulator()]),
-                 lambda: Simulator(None, [], None, None, None, None)):
+                 lambda: Simulator(None, [], None, None, None, None), sharded.make_mesh,
+                 lambda: sharded.sharded_demodulate(iq, 0.1, "FSK", 0.0, 1.0, 1),
+                 lambda: sharded.sharded_psk_demod(iq, 0.1), distributed.global_mesh,
+                 lambda: distributed.distributed_pulse_lens(iq, 0.1, "FSK", 0.0, 1.0, 1, 5,
+                                                            100),
+                 lambda: distributed.distributed_psk_demod_exact(iq, 0.1)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     x = np.ones(20000, np.complex64)  # four samples a pixel of a plot path

@@ -9,8 +9,10 @@ spectrograms (``dsp.spectrogram``), plot paths (``dsp.decimation``),
 protocol inference (``awre``, ``ProtocolAnalyzer.auto_assign_labels``),
 the live loop (``protocol.sniffer.ProtocolSniffer`` over the Network SDR
 or a hardware device such as RTL-TCP, ``protocol.generator.GeneratorBackend``,
-``dsp.continuous_modulator.ContinuousModulator``) and the stateful
-simulator (``sim.simulator.Simulator``) run on a CUDA card, with the kernels written by hand in CUDA C++ (``csrc/``).  Entry points run on the card unless the caller
+``dsp.continuous_modulator.ContinuousModulator``), the stateful
+simulator (``sim.simulator.Simulator``) and the block-sharded pipeline
+(``parallel.sharded``, across processes ``parallel.distributed``) run on
+a CUDA card, with the kernels written by hand in CUDA C++ (``csrc/``).  Entry points run on the card unless the caller
 passes ``device="cpu"``, where every kernel's plain PyTorch version runs
 instead.  Imports neither JAX nor urh_tpu.
 

@@ -49,6 +49,10 @@ _SIGNATURES = {
 _STREAM_SIGNATURES = {
     "urh_costas_f32": [_PTR, _C_INT64, _C_FLOAT, _C_FLOAT, _C_FLOAT, _C_INT, _C_FLOAT,
                        _C_FLOAT, _PTR, _PTR, _PTR],
+    "urh_costas_batch_f32": [_PTR, _C_INT64, _C_INT64, _C_FLOAT, _C_FLOAT, _C_FLOAT, _C_INT,
+                             _C_FLOAT, _C_FLOAT, _PTR, _PTR, _PTR],
+    # not a launcher: the batch's streams an SM holds at once
+    "urh_costas_batch_resident": [_C_INT, _PTR],
     "urh_costas_sincos_f32": [_PTR, _C_INT64, _PTR, _PTR, _PTR, _PTR, _PTR],
     **{f"urh_stream_block_{t}": [_PTR, _C_INT64, _C_INT, _C_FLOAT, _C_FLOAT, _C_INT, _PTR,
                                  _C_INT, _C_INT64, _C_INT, _PTR, _PTR]

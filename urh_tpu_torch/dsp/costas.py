@@ -13,10 +13,15 @@ on the device.
 The plain version steps sample by sample with float32 torch ops in the
 kernel's operation order, so it is slow by nature; it serves the tests,
 the CPU path and the comparison on the card.
+
+:func:`costa_demod_scan_batch` runs C independent streams, each from its
+own carry, in one launch of the same kernel (B9, one block a stream): the
+block-parallel PSK of :mod:`urh_tpu_torch.parallel.sharded`.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -29,7 +34,7 @@ _COSTAS_INIT_PHASE = 1.5  # signal_functions.pyx:261
 DAMPING = math.sqrt(2.0) / 2.0  # signal_functions.pyx:349 (afp_demod)
 
 # kernel name -> launches since the last reset; only a kernel launch counts
-LAUNCHES = {"costas_f32": 0}
+LAUNCHES = {"costas_f32": 0, "costas_batch_f32": 0}
 
 
 def costas_alpha_beta(bandwidth: float) -> tuple[float, float]:
@@ -46,17 +51,34 @@ def new_carry(device, phase: float = _COSTAS_INIT_PHASE, freq: float = 0.0) -> t
     return torch.tensor([phase, freq], dtype=torch.float32, device=device)
 
 
-def _check(x: torch.Tensor, carry: torch.Tensor) -> bool:
-    """Validate the inputs; True for CUDA tensors, False for CPU ones."""
+def _check(x: torch.Tensor, carry: torch.Tensor, batch: bool = False) -> bool:
+    """Validate the inputs ((N, 2) and (2,), or with ``batch`` (C, N, 2)
+    and (C, 2)); True for CUDA tensors, False for CPU ones."""
     if not isinstance(x, torch.Tensor) or x.dtype != torch.float32:
         raise TypeError("expected float32 samples as a torch.Tensor")
-    if x.dim() != 2 or x.shape[1] != 2 or not x.is_contiguous():
-        raise ValueError(f"expected contiguous (N, 2) I/Q, got {tuple(x.shape)}")
-    if carry.dtype != torch.float32 or carry.shape != (2,) or carry.device != x.device:
-        raise ValueError("carry must be a (2,) float32 tensor on the samples' device")
+    if x.dim() != 2 + batch or x.shape[-1] != 2 or not x.is_contiguous():
+        want = "(C, N, 2)" if batch else "(N, 2)"
+        raise ValueError(f"expected contiguous {want} I/Q, got {tuple(x.shape)}")
+    want = (x.shape[0], 2) if batch else (2,)
+    if carry.dtype != torch.float32 or carry.shape != want or carry.device != x.device \
+            or not carry.is_contiguous():
+        raise ValueError(f"carry must be a contiguous {want} float32 tensor on the "
+                         f"samples' device")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
+    if x.device.type == "cuda" and x.data_ptr() % 8:
+        raise ValueError("samples must be 8-byte aligned")
     return x.device.type == "cuda"
+
+
+def _launch(name: str, x: torch.Tensor, *args):
+    """Launch the kernel library's ``name`` on x's device and current
+    stream; RuntimeError if the launch fails."""
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = getattr(_build.library(), name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
 
 
 def costa_demod_scan_plain(x: torch.Tensor, noise_sqrd: float, scale: float, shift: float,
@@ -127,19 +149,54 @@ def costa_demod_scan(x: torch.Tensor, noise_sqrd: float, scale: float, shift: fl
                                                   alpha, beta, carry[0], carry[1])
         carry[0], carry[1] = phase, freq
         return qad
-    if x.data_ptr() % 8:
-        raise ValueError("samples must be 8-byte aligned")
     qad = torch.empty(len(x), dtype=torch.float32, device=x.device)
     if len(x):
-        fn = _build.library().urh_costas_f32
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            rc = fn(x.data_ptr(), len(x), noise_sqrd, scale, shift, int(loop_order != 2),
-                    alpha, beta, carry.data_ptr(), qad.data_ptr(), stream)
-        if rc != 0:
-            raise RuntimeError(f"urh_costas_f32 launch failed with CUDA error {rc}")
+        _launch("urh_costas_f32", x, x.data_ptr(), len(x), noise_sqrd, scale, shift,
+                int(loop_order != 2), alpha, beta, carry.data_ptr(), qad.data_ptr())
         LAUNCHES["costas_f32"] += 1
     return qad
+
+
+def costa_demod_scan_batch(x: torch.Tensor, noise_sqrd: float, scale: float, shift: float,
+                           loop_order: int, bandwidth: float,
+                           carry: torch.Tensor) -> torch.Tensor:
+    """C independent Costas streams (B9): x ((C, L, 2) float32, contiguous,
+    raw units) -> qad (C, L) float32, row c as :func:`costa_demod_scan`
+    gives it for x[c] from carry[c].
+
+    ``carry`` is the (C, 2) float32 tensor of (phase, freq) pairs on x's
+    device, read at the start and overwritten with each stream's final
+    carry.  One kernel launch for a CUDA tensor (counted in
+    ``LAUNCHES["costas_batch_f32"]``; none when C or L is 0), the plain
+    loop with every stream stepped together for a CPU one."""
+    alpha, beta = costas_alpha_beta(bandwidth)
+    if not _check(x, carry, batch=True):
+        qad, phase, freq = costa_demod_scan_plain(x, noise_sqrd, scale, shift, loop_order,
+                                                  alpha, beta, carry[:, 0], carry[:, 1])
+        carry[:, 0], carry[:, 1] = phase, freq
+        return qad
+    c, n = x.shape[0], x.shape[1]
+    if c >= 1 << 31:
+        raise ValueError(f"{c} streams: at most 2^31 - 1 a launch")
+    qad = torch.empty((c, n), dtype=torch.float32, device=x.device)
+    if c and n:
+        _launch("urh_costas_batch_f32", x, x.data_ptr(), c, n, noise_sqrd, scale, shift,
+                int(loop_order != 2), alpha, beta, carry.data_ptr(), qad.data_ptr())
+        LAUNCHES["costas_batch_f32"] += 1
+    return qad
+
+
+def batch_resident_streams(device, loop_order: int = 2) -> int:
+    """The streams of one B9 launch that ``device``'s card runs at once: the
+    occupancy API's blocks an SM times the SMs (past it, streams wait for
+    a free slot and the time grows by whole waves)."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = _build.library().urh_costas_batch_resident(int(loop_order != 2),
+                                                          ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"urh_costas_batch_resident failed with CUDA error {rc}")
+    return blocks.value * torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def loop_sincos(x: torch.Tensor):
@@ -153,10 +210,5 @@ def loop_sincos(x: torch.Tensor):
     if x.device.type == "cpu":
         return (torch.sin(x), torch.cos(x)), (torch.sin(x), torch.cos(x))
     out = [torch.empty_like(x) for _ in range(4)]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _build.library().urh_costas_sincos_f32(x.data_ptr(), x.numel(),
-                                                     *(o.data_ptr() for o in out), stream)
-    if rc != 0:
-        raise RuntimeError(f"urh_costas_sincos_f32 launch failed with CUDA error {rc}")
+    _launch("urh_costas_sincos_f32", x, x.data_ptr(), x.numel(), *(o.data_ptr() for o in out))
     return (out[0], out[1]), (out[2], out[3])
