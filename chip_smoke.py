@@ -66,7 +66,8 @@
    launched once a width bucket, the Costas loop once for PSK; then
    ``demodulate()`` at the estimated parameters decodes every FSK message
    bit-exactly (the exact messages of the others are counted); the BPSK
-   capture's estimate with 10 more silent samples ahead printed.  The same
+   capture with 10 more silent samples ahead estimated as PSK at 100 with
+   tolerance 0 (ROADMAP C1).  The same
    captures cut short give the same estimate and decisions on the card and
    on the CPU.
 7. TX: ``Modulator.modulate`` for ASK, FSK, GFSK, PSK and OQPSK, 1 and 2
@@ -174,13 +175,32 @@
    ``distributed_psk_demod_exact`` at world size 1 on NCCL in a spawned
    child, reading raw captures with ``read_capture_slice``, equal to the
    sharded results.  Walls printed.
+15. Placement, ``device="auto"``, in a temporary config dir: the link
+   signature, the dispatch probe and the transfer cost a byte each way
+   (pageable and pinned) printed; ``estimate()`` of the 2^24-sample FSK
+   capture, ``afp_demod`` at 2^24 and 2^12 samples, the spectrogram image
+   at 2^24, ``median_filter_rows`` at the bucket (2 x 100 rows of 16,368,
+   k = 11; B7 on the card) and ``modulate`` with 2^21- and 2^16-sample
+   bodies, each forced to the card, forced to the CPU and placed: its
+   verdict and three walls printed, the placed result equal to the forced
+   one of its side (to the word), B7's launches in the placed calls
+   counted (at least one); a second placed median runs one route (B7's
+   counter and ``placement.ROUTES``); rows already on the card stay there
+   under ``"auto"`` (one B7 launch, no route, the forced card's result);
+   ``FormatFinder.run(10)`` over
+   bench.py's 1,000 messages on the card, on the CPU and placed twice,
+   the first racing and the second replaying every key with one route, the
+   same types and labels each time; the store holds the link's verdicts,
+   and a fresh child replays them without racing; a race whose card route
+   raises lets the exception out and keeps no verdict.
 
 Every failed check raises.  The last three lines are a JSON ``kernels``
 summary, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``; the two lines before them have the offline PSK wall time, the
 stream's samples per second, the estimate() walls, the TX rate, the
 filter, spectrum, plot path and awre walls, the live loop's rates, the
-simulator's round walls, the RTL-TCP rate and the sharding walls.  Without
+simulator's round walls, the RTL-TCP rate, the sharding walls and the
+placement verdicts and walls.  Without
 a CUDA card the script exits non-zero before it prints any result.
 """
 
@@ -1392,10 +1412,15 @@ def estimate_phase(device, n: int = N_FULL, psk_n: int = B5_TIMED_N,
               f"{count_exact(bit_lists, bits)} of {len(bits)} messages exact, "
               f"{len(messages)} messages", flush=True)
     # ROADMAP.md C1: 10 more silent samples ahead of the BPSK capture move
-    # urh_tpu's own estimate (tolerance 0, not 1); printed, not checked
+    # urh_tpu's own estimate (tolerance 0, not 1)
     iq, _ = make_psk_capture(psk_n, seed=13, silence=quiet_lead(psk_n) + 10)
+    shifted = ut.estimate(iq, device=device)
     print(f"estimate PSK float32 with 10 more silent samples ahead ({psk_n} samples): "
-          f"{ut.estimate(iq, device=device)}", flush=True)
+          f"{shifted}", flush=True)
+    if shifted is None or (shifted["modulation_type"], shifted["bit_length"],
+                           shifted["tolerance"]) != ("PSK", 100, 0):
+        raise AssertionError(f"estimate PSK with 10 more silent samples ahead: {shifted}, "
+                             "not PSK at 100 with tolerance 0 (ROADMAP C1)")
     return {"launches": launches, "walls": walls}
 
 
@@ -2980,6 +3005,294 @@ def sharding_phase(device, identity: str, n: int = N_FULL, psk_n: int = B5_TIMED
                 child_wall=child["child_wall"], backend=str(child["backend"]))
 
 
+# -- placement: device="auto" between the card and the CPU -------------------
+
+PLACEMENT_SMALL_DEMOD = 1 << 12  # below urh_tpu's DEVICE_MIN_DEMOD_SAMPLES: the host
+PLACEMENT_SMALL_BODY = 1 << 16  # a TX body below urh_tpu's DEVICE_MIN_BODY_SAMPLES
+PLACEMENT_CHILD_TIMEOUT_S = 120
+
+PLACEMENT_REPLAY = r"""
+import json
+import sys
+from collections import Counter
+sys.modules["jax"] = None
+from urh_tpu_torch.util import placement
+calls = Counter()
+def route(key, side):
+    def fn():
+        calls[key + " " + side] += 1
+    return fn
+placement._load_store()
+keys = sorted(placement._RACE_VERDICTS)
+for key in keys:
+    placement.race(key, route(key, "card"), route(key, "host"))
+print(json.dumps({"signature": placement._link_signature(), "keys": keys,
+                  "calls": dict(calls)}))
+"""
+
+
+def route_side(route: str, before) -> str:
+    """The one side the placed calls at ``route`` took since ``before``."""
+    from urh_tpu_torch.util import placement
+
+    sides = {side for (r, side), runs in placement.ROUTES.items()
+             if r == route and runs > before[(r, side)]}
+    if len(sides) != 1:
+        raise AssertionError(f"placement {route}: sides {sides} in one placed call")
+    return sides.pop()
+
+
+def placed_route(label: str, route: str, call, same, card: str = "cuda") -> dict:
+    """``call(device)`` (its result on the host) forced to the card, forced
+    to "cpu", then placed ("auto"), each wall on the host clock around a
+    synchronized call; the placed result must equal the forced result of
+    the side it took (``same``).  -> verdict, walls and B7's launches in
+    the placed call."""
+    from collections import Counter
+
+    from urh_tpu_torch.ai import median_kernels as mk
+    from urh_tpu_torch.util import placement
+
+    walls, results = {}, {}
+    for key, device in (("cuda", card), ("cpu", "cpu"), ("auto", "auto")):
+        before = Counter(placement.ROUTES)
+        launched = mk.LAUNCHES["median_filter_f32"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[key] = call(device)
+        torch.cuda.synchronize()
+        walls[key] = time.perf_counter() - t0
+    b7 = mk.LAUNCHES["median_filter_f32"] - launched
+    side = route_side(route, before)
+    forced = "cuda" if side == "card" else "cpu"
+    equal = same(results["auto"], results[forced])
+    print(f"placement {label}: verdict {side}; walls (s) placed {walls['auto']}, card "
+          f"{walls['cuda']}, CPU {walls['cpu']}; placed equal to forced {forced} {equal}; "
+          f"B7 launched {b7} times by the placed call", flush=True)
+    if not equal:
+        raise AssertionError(f"placement {label}: the placed result differs from {forced}'s")
+    return {"verdict": side, "walls": walls, "b7": b7}
+
+
+def same_arrays(a, b) -> bool:
+    """Equal shapes, types and words (NaN payloads included)."""
+    a, b = np.asarray(a), np.asarray(b)
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and a.tobytes() == b.tobytes())
+
+
+def pinned_s_per_byte(card) -> tuple:
+    """(up, down) seconds a byte of placement.TRANSFER_BYTES copied between
+    page-locked host buffers and the card, best of 2 after a warm copy each
+    way: what a route would pay if it staged through pinned memory, which
+    none does (placement prices the pageable copies)."""
+    from urh_tpu_torch.util import placement
+
+    src = torch.zeros(placement.TRANSFER_BYTES // 4, pin_memory=True)
+    dst = torch.empty_like(src, pin_memory=True)
+
+    def round_trip() -> tuple:
+        t0 = time.perf_counter()
+        x = src.to(card, non_blocking=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dst.copy_(x, non_blocking=True)
+        torch.cuda.synchronize()
+        return t1 - t0, time.perf_counter() - t1
+
+    round_trip()
+    times = [round_trip() for _ in range(2)]
+    nbytes = src.numel() * 4
+    return (min(t[0] for t in times) / nbytes, min(t[1] for t in times) / nbytes)
+
+
+def placement_phase(identity: str, n: int = N_FULL, awre_n: int = AWRE_MESSAGES,
+                    card: str = "cuda") -> dict:
+    """device="auto" (urh_tpu_torch.util.placement) in a temporary config
+    dir: the link signature, the dispatch probe and the transfer cost a
+    byte each way (pageable, which the routes pay, and pinned); then each
+    placed route at PERF.md's sizes forced to the card, forced to the CPU
+    and placed, its verdict and walls printed, the placed result equal to
+    the forced one of its side: estimate() (FSK float32, n samples),
+    afp_demod (FSK, n and PLACEMENT_SMALL_DEMOD samples), the spectrogram
+    image (n samples), median_filter_rows at the bucket (B7 on the card),
+    modulate (TX_BODY and PLACEMENT_SMALL_BODY bodies);
+    FormatFinder.run(10) over bench.py's protocol twice, the first racing
+    and the second replaying.  A second placed median runs one route (B7's
+    launch counter and placement.ROUTES); rows already on the card stay
+    there under "auto" (one B7 launch, no route); the store holds the link's
+    verdicts and a fresh child replays them without racing; a race whose
+    card route raises lets the exception out and leaves no verdict.
+    ``card`` names the card (a rehearsal on the CPU fakes one).  -> verdicts,
+    walls, B7's launches on the placed paths, the probes."""
+    import tempfile
+    from collections import Counter
+
+    import urh_tpu_torch as ut
+    from urh_tpu_torch.ai import device as ai_device
+    from urh_tpu_torch.ai import median_kernels as mk
+    from urh_tpu_torch.awre.format_finder import FormatFinder
+    from urh_tpu_torch.dsp import demod, modulate
+    from urh_tpu_torch.dsp.spectrogram import Spectrogram
+    from urh_tpu_torch.util import placement, settings
+
+    folder = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    os.makedirs(folder, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=folder) as home:
+        # neither the user's store nor a stale verdict decides anything here
+        settings._config_dir = os.path.join(home, "urh_tpu")
+        settings._settings_file = os.path.join(settings._config_dir, "settings.json")
+        settings._store = None
+        placement._RACE_VERDICTS.clear()
+        placement._STORE_LOADED = False
+        placement.ROUTES.clear()
+        reset_launches()
+
+        on_card = torch.device(card).type == "cuda"
+        signature = placement._link_signature()
+        dispatch = placement.dispatch_overhead_s()
+        pageable = placement.transfer_s_per_byte()
+        pinned = pinned_s_per_byte(card) if on_card else None
+        print(f"placement link {signature!r}: dispatch {dispatch} s, transfer s/B up/down "
+              f"pageable {pageable}, pinned {pinned}; scaled 2^15 -> "
+              f"{placement.scaled_threshold(1 << 15)} on {identity}", flush=True)
+
+        out = {"probes": {"signature": signature, "dispatch_s": dispatch,
+                          "pageable_s_per_byte": pageable, "pinned_s_per_byte": pinned}}
+        iq, _ = make_capture("FSK", n, 11, lead=quiet_lead(n))
+        out["estimate"] = placed_route(
+            f"estimate() FSK float32 {n}", "ai.estimate.staging",
+            lambda dev: ut.estimate(iq, device=dev), lambda a, b: a == b, card)
+        for size in (n, PLACEMENT_SMALL_DEMOD):
+            x = iq[:size]
+            out[f"afp_demod {size}"] = placed_route(
+                f"afp_demod FSK {size}", "dsp.afp_demod",
+                lambda dev: demod.afp_demod(x, 0.1, "FSK", device=dev).cpu().numpy(),
+                same_arrays, card)
+        cx = (iq[:, 0] + 1j * iq[:, 1]).astype(np.complex64)
+        out["spectrogram"] = placed_route(
+            f"spectrogram image {n}", "dsp.spectrogram",
+            lambda dev: Spectrogram(cx, window_size=1024, device=dev).create_spectrogram_image(),
+            same_arrays, card)
+        # magnitudes, as classification filters them: no -0.0, no NaN
+        rows = torch.from_numpy(np.abs(np.random.default_rng(29).normal(
+            size=B7_MAIN_SHAPES[0])).astype(np.float32))
+        out["median"] = placed_route(
+            f"median_filter_rows {tuple(rows.shape)} k={B7_K}", "ai.median_filter_rows",
+            lambda dev: ai_device.median_filter_rows(rows, B7_K, device=dev).cpu().numpy(),
+            same_arrays, card)
+        rng = np.random.default_rng(31)
+        fsk = tx_modulator("FSK", 1, [-25e3, 25e3])
+        for body in (TX_BODY, PLACEMENT_SMALL_BODY):
+            bits = rng.integers(0, 2, -(-body // 100))
+            out[f"modulate {body}"] = placed_route(
+                f"modulate FSK body {len(bits) * 100}", "dsp.modulate",
+                lambda dev: modulate.modulate(bits, 100, "fsk", [-25e3, 25e3], pause=1000,
+                                              device=dev),
+                same_arrays, card)
+        b7_launches = sum(r["b7"] for r in out.values() if "b7" in r)
+
+        # a second placed median runs one route, counted by B7 and ROUTES
+        before, launched = Counter(placement.ROUTES), mk.LAUNCHES["median_filter_f32"]
+        ai_device.median_filter_rows(rows, B7_K, device="auto")
+        side = route_side("ai.median_filter_rows", before)
+        delta = placement.ROUTES - before
+        if (side != out["median"]["verdict"] or sum(delta.values()) != 1
+                or mk.LAUNCHES["median_filter_f32"] - launched != (side == "card")):
+            raise AssertionError(f"a second placed median: {dict(delta)}, B7 launched "
+                                 f"{mk.LAUNCHES['median_filter_f32'] - launched} times")
+
+        # rows already on the card stay there under "auto": one B7 launch, no
+        # route, the forced card's result (a rehearsal on the CPU has no card)
+        if on_card:
+            before, launched = Counter(placement.ROUTES), mk.LAUNCHES["median_filter_f32"]
+            staged = ai_device.median_filter_rows(rows.to(card), B7_K, device="auto")
+            b7_staged = mk.LAUNCHES["median_filter_f32"] - launched
+            print(f"placement median_filter_rows of rows on the card: on {staged.device}, "
+                  f"B7 launched {b7_staged} times, routes {dict(placement.ROUTES - before)}",
+                  flush=True)
+            forced = ai_device.median_filter_rows(rows, B7_K, device=card).cpu().numpy()
+            if (staged.device.type != "cuda" or b7_staged != 1 or placement.ROUTES != before
+                    or not same_arrays(staged.cpu().numpy(), forced)):
+                raise AssertionError("placed median of rows on the card left the card, "
+                                     "was routed, or differs from the forced card's")
+
+        # awre: the first placed run races its keys, the second replays them
+        walls, found = {}, {}
+        for label, device in (("card", card), ("CPU", "cpu"), ("placed, first", "auto"),
+                              ("placed, second", "auto")):
+            before = Counter(placement.ROUTES)
+            messages = awre_protocol(awre_n)
+            t0 = time.perf_counter()
+            ff = FormatFinder(messages, device=device)
+            ff.run(max_iterations=10)
+            walls[label] = time.perf_counter() - t0
+            found[label] = format_summary(ff)
+            runs = placement.ROUTES - before
+        raced = sorted(placement._RACE_VERDICTS)
+        second_sides = Counter(key for key, _ in runs)
+        print(f"placement FormatFinder.run(10) over {awre_n} messages: walls (s) {walls}; "
+              f"verdicts {dict(placement._RACE_VERDICTS)}; the second placed run's routes "
+              f"{dict(runs)}", flush=True)
+        if any(f != found["card"] for f in found.values()) or not raced:
+            raise AssertionError("placement FormatFinder: the types differ, or nothing raced")
+        if any(c != 1 for c in second_sides.values()):
+            raise AssertionError(f"the second placed FormatFinder raced again: {dict(runs)}")
+        out["awre"] = {"verdicts": dict(placement._RACE_VERDICTS), "walls": walls}
+
+        # the store holds this link's verdicts; a fresh process replays them
+        with open(placement._store_path()) as f:
+            stored = json.load(f)
+        if stored.get(signature) != placement._RACE_VERDICTS:
+            raise AssertionError(f"placement store {stored} lacks {signature!r}'s verdicts")
+        env = dict(os.environ, XDG_CONFIG_HOME=home)
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, "-c", PLACEMENT_REPLAY], env=env,
+                               cwd=os.path.dirname(os.path.abspath(__file__)),
+                               capture_output=True, text=True,
+                               timeout=PLACEMENT_CHILD_TIMEOUT_S)
+        child_wall = time.perf_counter() - t0
+        if child.returncode != 0:
+            raise AssertionError(f"placement replay child exited {child.returncode}: "
+                                 f"{child.stderr[-2000:]}")
+        replay = json.loads(child.stdout.strip().splitlines()[-1])
+        want = {f"{key} {'card' if v == 'device' else 'host'}": 1
+                for key, v in placement._RACE_VERDICTS.items()}
+        print(f"placement replay child ({child_wall} s): signature {replay['signature']!r}, "
+              f"{len(replay['keys'])} keys, calls equal to the stored winners "
+              f"{replay['calls'] == want}", flush=True)
+        if replay["signature"] != signature or replay["calls"] != want:
+            raise AssertionError(f"placement replay: {replay}, want {want}")
+
+        # a card route that raises: the exception comes out, no verdict is kept
+        def failing():
+            return (torch.ones(2, device=card) + torch.ones(3, device=card)).cpu()
+
+        try:
+            placement.race("chip_smoke.failing", failing, lambda: "host")
+        except RuntimeError as exc:
+            print(f"placement race with a failing card route raised: {str(exc)[:80]!r}",
+                  flush=True)
+        else:
+            raise AssertionError("a race whose card route raised returned a result")
+        with open(placement._store_path()) as f:
+            if "chip_smoke.failing" in placement._RACE_VERDICTS or "chip_smoke.failing" in (
+                    json.load(f).get(signature, {})):
+                raise AssertionError("a race whose card route raised kept a verdict")
+    if b7_launches == 0:
+        raise AssertionError("the placed paths launched B7 no time")
+    out["b7_launches"] = b7_launches
+    out["child_wall"] = child_wall
+    return out
+
+
+def placement_summary(placed: dict) -> str:
+    parts = [f"{label} {r['verdict']} (placed {r['walls']['auto']}, card {r['walls']['cuda']}, "
+             f"CPU {r['walls']['cpu']})" for label, r in placed.items()
+             if isinstance(r, dict) and "verdict" in r]
+    return "; ".join(parts) + f"; FormatFinder {placed['awre']['walls']}"
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
@@ -3030,6 +3343,8 @@ def main():
     b9 = b9_phase("cuda", clock)
     sharding = sharding_phase(None, identity)  # None: the default device
     elapsed("B9 and the sharded and distributed paths")
+    placed = placement_phase(identity)
+    elapsed("placement")
 
     rows = []
     for key, k in KERNELS.items():
@@ -3082,7 +3397,7 @@ def main():
         "large_rows": B7_LARGE[0], "large_width": B7_LARGE[1],
         **{f"large_{key}": v for key, v in b7["timings"][B7_LARGE].items()},
         "large_bound_ms": large_bound, "outputs_a_thread": b7["variant"]["outputs"],
-        "registers": b7["variant"]["registers"],
+        "registers": b7["variant"]["registers"], "placement_launches": placed["b7_launches"],
     })
     bound, bound_by = b8_bound_ms(B8_TIMED_N, b8["cycles"], clock)
     rows.append({
@@ -3124,7 +3439,8 @@ def main():
         f"{rtl['rate']} samples/s, the child connected in {rtl['connect_s']} s; sharding "
         f"{sharding['walls']}, the distributed child ({sharding['backend']}) "
         f"{sharding['child_wall']} s, block-parallel PSK messages exact "
-        f"{sharding['relocked']} on {identity}", flush=True)
+        f"{sharding['relocked']}; placement {placement_summary(placed)} on {identity}",
+        flush=True)
     print(json.dumps({"kernels": rows}))
     print(identity)
     print(json.dumps({"ok": True, "device": {

@@ -107,6 +107,11 @@ import urh_tpu_torch.sim.expression_parser
 import urh_tpu_torch.sim.items
 import urh_tpu_torch.sim.simulator
 import urh_tpu_torch.util.project
+import urh_tpu_torch.dev.pcap
+import urh_tpu_torch.util.csv_import
+import urh_tpu_torch.util.file_operator
+import urh_tpu_torch.util.formatter
+import urh_tpu_torch.util.placement
 from urh_tpu_torch.dev.virtual_device import Mode, VirtualDevice
 rtl = VirtualDevice(BackendHandler(), "RTL-TCP", Mode.receive)
 assert type(rtl._dev).__name__ == "RTLSDRTCP" and rtl.data_type == np.int8
@@ -211,6 +216,52 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
                  lambda: create_path(x.real, 0, len(x)), lambda: FormatFinder([])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+    # "auto" places work between the card and the CPU only where a card is
+    # present: without one it raises as the default does, at every entry point
+    from urh_tpu_torch.ai import device as ai_device
+    from urh_tpu_torch.awre import device as awre_device
+    from urh_tpu_torch.dsp.modulate import modulate
+    from urh_tpu_torch.util.csv_import import csv_to_signal
+
+    auto = "auto"
+    rows = torch.zeros(2, 100)
+    data, lengths = awre_device.pack_messages([np.zeros(8, np.uint8)] * 2)
+    for call in (lambda: urh_tpu_torch.demodulate(iq, device=auto), lambda: Signal(device=auto),
+                 lambda: Signal.from_iq(iq, device=auto),
+                 lambda: urh_tpu_torch.afp_demod(iq, 0.1, "FSK", device=auto),
+                 lambda: urh_tpu_torch.afp_demod(iq, 0.1, "PSK", device=auto),
+                 lambda: urh_tpu_torch.StreamDemodulator(urh_tpu_torch.DemodParams(),
+                                                         device=auto),
+                 lambda: urh_tpu_torch.estimate(iq, device=auto),
+                 lambda: urh_tpu_torch.Modulator().modulate("1010", device=auto),
+                 lambda: modulate([1, 0], 100, "fsk", [-1e3, 1e3], device=auto),
+                 lambda: ai_device.median_filter_rows(rows, 11, device=auto),
+                 lambda: ai_device.classification_stats(np.ones((2, 100), np.complex64),
+                                                        device=auto),
+                 lambda: ai_device.histogram(np.zeros(10, np.float32), np.arange(3.0),
+                                             device=auto),
+                 lambda: awre_device.first_difference_matrix(data, lengths, device=auto),
+                 lambda: awre_device.column_agreement(data, lengths, device=auto),
+                 lambda: awre_device.ngram_values(data, lengths, 4, device=auto),
+                 lambda: awre_device.occurrence_matrix(data, lengths, [[0, 0]], device=auto),
+                 lambda: awre_device.batched_crc(np.zeros((2, 8), np.uint8), [1, 1, 1], [0, 0],
+                                                 [0, 0], device=auto),
+                 lambda: ProtocolSniffer(100, 0.0, 0.1, 0.1, 5, "FSK", 1, "Network SDR",
+                                         BackendHandler(), compute_device=auto),
+                 lambda: GeneratorBackend(ProtocolAnalyzerContainer(), device=auto),
+                 lambda: ContinuousModulator([], [urh_tpu_torch.Modulator()], device=auto),
+                 lambda: Simulator(None, [], None, None, None, None, device=auto),
+                 lambda: sharded.make_mesh(device=auto), lambda: distributed.global_mesh(
+                     device=auto), lambda: fir_filter(x, np.ones(3), device=auto),
+                 lambda: iir_filter([1.0], [0.5], x, device=auto),
+                 lambda: Filter.fft_convolve_1d(x, np.ones(3), device=auto),
+                 lambda: Spectrogram(x, device=auto),
+                 lambda: create_path(x.real, 0, len(x), device=auto),
+                 lambda: FormatFinder([], device=auto)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        csv_to_signal(os.path.join(ROOT, "pyproject.toml"), device=auto)
     # an explicit device is honoured
     assert Signal.from_iq(iq, device="cpu").device == torch.device("cpu")
 

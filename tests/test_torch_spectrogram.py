@@ -13,6 +13,9 @@ urh_tpu_torch (torch's CPU ops).  Tolerances:
   export's f and t: exact; its amplitudes within 0.05 dB.
 """
 
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +27,8 @@ from urh_tpu.util import colormaps as jax_colormaps
 from urh_tpu_torch.dsp import decimation, spectrogram
 from urh_tpu_torch.dsp.spectrogram import Spectrogram
 from urh_tpu_torch.util import colormaps
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 torch.set_num_threads(1)
 
@@ -141,7 +146,9 @@ def test_colormap_tables_equal_urh_tpu(name):
     np.testing.assert_array_equal(colormaps.maps[name], jax_colormaps.maps[name])
 
 
-def test_colormap_choice_equals_urh_tpu(monkeypatch):
+def test_colormap_choice_equals_urh_tpu(monkeypatch, tmp_path):
+    import json
+
     from urh_tpu_torch.util import settings
 
     assert colormaps.available_colormaps == jax_colormaps.available_colormaps
@@ -159,7 +166,12 @@ def test_colormap_choice_equals_urh_tpu(monkeypatch):
                                       jax_colormaps.calculate_numpy_brga_for("magma"))
     finally:
         colormaps.choose_colormap(colormaps.default_colormap)
-    assert not hasattr(colormaps, "write_selected_colormap_to_settings")
+    # the choice is written to the store under urh_tpu's key
+    monkeypatch.setattr(settings, "_config_dir", str(tmp_path))
+    monkeypatch.setattr(settings, "_settings_file", str(tmp_path / "settings.json"))
+    colormaps.write_selected_colormap_to_settings("viridis")
+    assert colormaps.read_selected_colormap_name_from_settings() == "viridis"
+    assert json.load(open(tmp_path / "settings.json"))["spectrogram_colormap"] == "viridis"
 
 
 PATH_CASES = {
@@ -189,3 +201,29 @@ def test_create_live_path_equals_urh_tpu():
     for got, want in zip(decimation.create_live_path(samples, 10, 90),
                          jax_decimation.create_live_path(samples, 10, 90)):
         np.testing.assert_array_equal(got, want)
+
+
+def test_db_images_agree_above_minus_100_db_and_not_below():
+    """ROADMAP C10: on chip_smoke's 2^22-sample FSK capture at window 1,024,
+    urh_tpu's host (NumPy) and device (XLA) dB images agree within 0.05 dB
+    at or above -100 dB and differ by more below it, where float32 FFT
+    rounding decides; the port's CPU image agrees with both above."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(ROOT, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    iq, _ = chip_smoke.make_capture("FSK", 1 << 22, 1)
+    x = (iq[:, 0] + 1j * iq[:, 1]).astype(np.complex64)
+    samples, hop, frames, wf = Spectrogram(x, window_size=1024, device="cpu")._frame_params(x)
+    host = jax_spectrogram.Spectrogram._stft_db_np(samples, 1024, hop, frames, wf)
+    device = np.asarray(jax_spectrogram._stft_db_device(
+        jnp.asarray(samples.real), jnp.asarray(samples.imag), 1024, hop, frames, wf))
+    port = spectrogram._stft_db_device(torch.from_numpy(samples), 1024, hop, frames, wf).numpy()
+    np.testing.assert_array_equal(np.isfinite(host), np.isfinite(device))
+    above = np.isfinite(host) & (host >= chip_smoke.DB_FLOOR)
+    below = np.isfinite(host) & (host < chip_smoke.DB_FLOOR)
+    assert above.any() and below.any()
+    assert np.abs(host - device)[above].max() <= DB_ATOL
+    assert np.abs(host - device)[below].max() > DB_ATOL
+    for image in (host, device):
+        assert np.abs(port - image)[above].max() <= DB_ATOL

@@ -13,10 +13,14 @@ classified by one pass on the device computing, for every message at once:
 * the FSK spectral test (a second strong FFT peak far from the main one,
   ``torch.topk``).
 
-Only per-message scalars come back to the host.  There is no host route
-chosen by size: the port computes on the device it is given (the CPU runs
-the same torch ops and B7's plain version).  The decision thresholds live
-in :mod:`urh_tpu_torch.ai.estimate`.
+Only per-message scalars come back to the host.  Each entry computes on
+the device it is given (the CPU runs the same torch ops and B7's plain
+version).  Under ``device="auto"`` each is placed as urh_tpu places it
+(:mod:`urh_tpu_torch.util.placement`): the card from DEVICE_MIN_CELLS
+cells scaled by the measured dispatch cost, and, for the bulk transfers,
+only while the measured I/O cost stays below urh_tpu's host cost a cell;
+the CPU otherwise.  The decision thresholds live in
+:mod:`urh_tpu_torch.ai.estimate`.
 """
 
 from __future__ import annotations
@@ -26,9 +30,17 @@ import math
 import numpy as np
 import torch
 
-from urh_tpu_torch.ai.median_kernels import median_filter as median_filter_rows
-from urh_tpu_torch.core.iq import resolve_device
+from urh_tpu_torch.ai.median_kernels import median_filter
 from urh_tpu_torch.dsp.demod import scalar_f32
+from urh_tpu_torch.native import get_library
+from urh_tpu_torch.util import placement
+
+# below this many complex cells a bucket goes to the host under "auto"
+DEVICE_MIN_CELLS = 1 << 15
+# urh_tpu's host median (_median_full_windows_np): the native library from
+# this many cells, its sliding sorted window up to this k
+NATIVE_MEDIAN_MIN_CELLS = 1 << 16
+NATIVE_MEDIAN_SLIDING_MAX_K = 64
 
 FFT_PEAK_MIN_DISTANCE = 10  # bins between the two strongest peaks
 FFT_PEAK_MIN_POWER = 100  # noise amplitude scale
@@ -36,8 +48,14 @@ FFT_PEAK_COUNT = 10
 
 # From this many values on, histogram() bins as urh_tpu's device route does
 # (float32 arithmetic); below it, it counts as np.histogram does.  urh_tpu
-# chose the route by this size; here it is a rule of the result.
+# chose the route by this size; here it is a rule of the result, and under
+# "auto" the route too (scaled as urh_tpu scales it).
 HISTOGRAM_MIN_VALUES = 1 << 22
+
+
+def use_device(n_cells: int) -> bool:
+    """urh_tpu's size rule for a placed call (needs the card's probe)."""
+    return n_cells >= placement.scaled_threshold(DEVICE_MIN_CELLS)
 
 
 def pow2_floor(n: int) -> int:
@@ -87,9 +105,52 @@ def _abs_of_complex_max(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
     return torch.hypot(max_re[..., 0], max_im)
 
 
-def _stats(re: torch.Tensor, im: torch.Tensor, scale: int, median_k: int) -> dict:
+def _median_host(rows: torch.Tensor, k: int) -> torch.Tensor:
+    """The median's host route under "auto", urh_tpu's host twin: from
+    NATIVE_MEDIAN_MIN_CELLS cells the full windows by the native library
+    (float64 in, float32 out), the shrunk tail windows and smaller rows by
+    B7's plain version.  The native code orders values by ``<``: -0.0 and
+    +0.0 tie, so a zero median may come out with either sign, and a window
+    that holds a NaN has no defined order; every other window equals the
+    plain version's to the bit."""
+    w = rows.shape[-1]
+    full = w - int(k) + 1
+    lib = get_library() if full > 0 and rows.numel() >= NATIVE_MEDIAN_MIN_CELLS else None
+    if lib is None:
+        return median_filter(rows, k)
+    flat = np.ascontiguousarray(rows.reshape(-1, w).numpy(), dtype=np.float64)
+    body = np.empty((flat.shape[0], full), dtype=np.float32)
+    fn = (lib.urh_median_sliding if k <= NATIVE_MEDIAN_SLIDING_MAX_K
+          else lib.urh_median_full_windows)
+    fn(flat.ctypes.data, flat.shape[0], w, int(k), body.ctypes.data)
+    # window i of the tail is rows[i:], all of it inside the last k - 1 columns
+    tail = median_filter(rows[..., full:].contiguous(), k)
+    return torch.cat((torch.from_numpy(body).reshape(*rows.shape[:-1], full), tail), dim=-1)
+
+
+def median_filter_rows(rows: torch.Tensor, k: int, device=None) -> torch.Tensor:
+    """Forward-window median of each row of a float32 tensor (B7 on the
+    card, its plain version on the CPU), on the rows' device, or on
+    ``device`` when given.  Under ``"auto"`` rows on the card stay there
+    (B7); rows on the CPU are placed by urh_tpu's rule: the card from
+    DEVICE_MIN_CELLS cells while the I/O cost (8 B a cell up, 4 back) stays
+    below 5 ns a cell, else :func:`_median_host`."""
+    if device is None or (placement.is_auto(device) and rows.device.type != "cpu"):
+        return median_filter(rows, k)
+    n = rows.numel()
+    dev, side = placement.choose(
+        "ai.median_filter_rows", device,
+        lambda: use_device(n) and placement.device_io_cost_s(8 * n, 4 * n) < n * 5e-9)
+    if side == "host":
+        return _median_host(rows, k)
+    return median_filter(rows.to(dev).contiguous(), k)
+
+
+def _stats(re: torch.Tensor, im: torch.Tensor, scale: int, median_k: int,
+           median_device=None) -> dict:
     """Classification statistics of (B, W) float32 I and Q planes on their
-    device; only the (B,) results come back, in one copy."""
+    device; only the (B,) results come back, in one copy.  The median runs
+    on ``median_device`` when given (see median_filter_rows)."""
     norm_scale = _abs_of_complex_max(re, im)[:, None]
     data = torch.complex(re / norm_scale, im / norm_scale)
     mag = torch.hypot(re, im)
@@ -100,7 +161,8 @@ def _stats(re: torch.Tensor, im: torch.Tensor, scale: int, median_k: int) -> dic
     mags = torch.cat((cwt_haar(data, scale, fwd=fwd).abs(), cwt_haar(unit, scale).abs()))
     # torch.var is unbiased by default; NumPy's and JAX's var are not
     var = torch.var(mags, dim=-1, correction=0)
-    var_filtered = torch.var(median_filter_rows(mags, median_k), dim=-1, correction=0)
+    var_filtered = torch.var(median_filter_rows(mags, median_k, median_device), dim=-1,
+                             correction=0)
 
     spectrum = torch.fft.fftshift(fwd, dim=-1).abs()
     values, order = torch.topk(spectrum, min(FFT_PEAK_COUNT, spectrum.shape[-1]), dim=-1)
@@ -126,11 +188,20 @@ def classification_stats(batch: np.ndarray, scale: int = 4, median_k: int = 11,
     var_filtered_norm_mag (float32 arrays, shape (B,)) and is_fsk (bool
     (B,)).  The median-filtered variances include the reference's shrunk
     end windows.  The bucket is uploaded to ``device`` (default: the CUDA
-    card) as float32 planes; only per-message scalars come back."""
+    card) as float32 planes; only per-message scalars come back.  Under
+    ``"auto"`` urh_tpu's rule places it: the card from DEVICE_MIN_CELLS
+    cells while the upload (8 B a cell) costs less than 15 ns a cell, else
+    the CPU, whose median is placed again as urh_tpu's host twin places
+    it."""
     batch = np.ascontiguousarray(batch, dtype=np.complex64)
     planes = torch.from_numpy(batch.view(np.float32).reshape(*batch.shape, 2))
-    planes = planes.to(resolve_device(device))
-    return _stats(planes[..., 0], planes[..., 1], scale, median_k)
+    n = batch.size
+    dev, side = placement.choose(
+        "ai.classification_stats", device,
+        lambda: use_device(n) and placement.device_io_cost_s(8 * n) < n * 15e-9)
+    planes = planes.to(dev)
+    return _stats(planes[..., 0], planes[..., 1], scale, median_k,
+                  median_device=device if side == "host" else None)
 
 
 def classification_stats_staged(planes: torch.Tensor, starts, width: int, scale: int = 4,
@@ -152,7 +223,8 @@ def classification_stats_staged(planes: torch.Tensor, starts, width: int, scale:
 
 def histogram(values: np.ndarray, bin_edges: np.ndarray, device=None) -> np.ndarray:
     """Counts of float32 ``values`` in uniform (np.arange-style) ``bin_edges``,
-    on ``device`` (default: the CUDA card), by urh_tpu's rule:
+    on ``device`` (default: the CUDA card; ``"auto"`` places it), by
+    urh_tpu's rule:
 
     * below HISTOGRAM_MIN_VALUES values, np.histogram's counts: float64
       comparisons with the edges, each bin half-open but the last, which is
@@ -164,7 +236,10 @@ def histogram(values: np.ndarray, bin_edges: np.ndarray, device=None) -> np.ndar
     n_bins = len(bin_edges) - 1
     if n_bins <= 0:
         return np.zeros(0, dtype=np.int64)
-    device = resolve_device(device)
+    # under "auto" the card from HISTOGRAM_MIN_VALUES values, urh_tpu's rule
+    device, _ = placement.choose(
+        "ai.histogram", device,
+        lambda: len(values) >= placement.scaled_threshold(HISTOGRAM_MIN_VALUES) and n_bins >= 2)
     v = torch.from_numpy(np.ascontiguousarray(values, dtype=np.float32)).to(device)
     if len(v) >= HISTOGRAM_MIN_VALUES and n_bins >= 2:
         lo = scalar_f32(bin_edges[0], device)

@@ -6,7 +6,10 @@ the reference.  ``estimate(iq, device=None)`` runs on the CUDA card by
 default:
 
 * noise floor and message segmentation: host NumPy, on the magnitudes;
-* the capture goes to the device once (``IQData.staged_planes``);
+* the capture goes to the device once (``IQData.staged_planes``); under
+  ``device="auto"`` only while urh_tpu's rule holds (2N cells from
+  DEVICE_MIN_CELLS on, and 8 B a sample up and 4 back cost less than
+  5 ns a sample), and otherwise each stage below is placed on its own;
 * modulation classification gathers the sampled messages from there,
   bucket by bucket (:func:`urh_tpu_torch.ai.device.classification_stats_staged`,
   one B7 launch a bucket), and applies the variance and spectral
@@ -37,8 +40,9 @@ from urh_tpu_torch.ai.segmentation import (
     min_without_outliers,
     segment_messages_from_magnitudes,
 )
-from urh_tpu_torch.core.iq import IQData, resolve_device
+from urh_tpu_torch.core.iq import IQData
 from urh_tpu_torch.dsp import demod as _demod
+from urh_tpu_torch.util import placement
 
 # classification thresholds (AutoInterpretation.py:151-207)
 _OOK_MAX_ZEROS = 3  # more gated-out samples than this means on/off keying
@@ -131,7 +135,7 @@ def classify_messages(iq_data: IQData, segments: list, wavelet_scale=_WAVELET_SC
     segments are gathered there and only their start offsets cross PCIe;
     the other buckets are uploaded to ``staged``'s device, or to ``device``
     (default: the CUDA card) without it."""
-    device = staged.device if staged is not None else resolve_device(device)
+    device = staged.device if staged is not None else placement.requested(device)
     decisions, staged_buckets, buckets = bucket_segments(
         iq_data, segments, wavelet_scale, staged=staged is not None)
 
@@ -313,8 +317,8 @@ def _message_parameters(rect: np.ndarray, device=None) -> tuple:
 def estimate(iq_array, noise: float = None, modulation: str = None, device=None) -> dict:
     """Modulation type, bit length, center, tolerance and noise of a capture
     ((N, 2) numpy in an ingest dtype, or an IQData), on ``device`` (default:
-    the CUDA card); None when undecidable."""
-    device = resolve_device(device)
+    the CUDA card; ``"auto"`` places it); None when undecidable."""
+    device = placement.requested(device)
     if isinstance(iq_array, np.ndarray):
         iq_array = IQData(iq_array)
 
@@ -325,11 +329,19 @@ def estimate(iq_array, noise: float = None, modulation: str = None, device=None)
     segments = segment_messages_from_magnitudes(magnitudes, noise_threshold=noise)
 
     # the capture goes to the device once: classification and demodulation
-    # both read it from there
-    staged = iq_array.staged_planes(device)
+    # both read it from there.  Under "auto" only while moving it (8 B a
+    # sample up, qad 4 B back) costs less than urh_tpu's host pipeline, 5 ns
+    # a sample; unstaged, each stage is placed on its own.
+    n_samples = len(iq_array)
+    staging, side = placement.choose(
+        "ai.estimate.staging", device,
+        lambda: ai_device.use_device(2 * n_samples)
+        and placement.device_io_cost_s(8 * n_samples, 4 * n_samples) < n_samples * 5e-9)
+    staged = iq_array.staged_planes(staging) if side != "host" else None
 
     if modulation is None:
-        modulation = detect_modulation_for_messages(iq_array, segments, staged=staged)
+        modulation = detect_modulation_for_messages(iq_array, segments, staged=staged,
+                                                    device=device)
     if modulation is None:
         return None
 
@@ -339,8 +351,9 @@ def estimate(iq_array, noise: float = None, modulation: str = None, device=None)
     demod_kind = "ASK" if modulation in ("OOK", "ASK") else modulation
     if demod_kind not in ("ASK", "FSK", "PSK"):
         raise ValueError("unsupported modulation")
-    rect = _demod.afp_demod(staged, noise, demod_kind, 2,
-                            dtype=iq_array.data.dtype).cpu().numpy()
+    rect = _demod.afp_demod(staged if staged is not None else iq_array.data, noise,
+                            demod_kind, 2, dtype=iq_array.data.dtype,
+                            device=device).cpu().numpy()
 
     centers, bit_lengths, tolerances = [], [], []
     for start, end in segments:

@@ -4,7 +4,10 @@ PyTorch port of urh_tpu.awre.device, the integer primitives behind awre
 (reference: urh/cythonext/awre_util.pyx, per-element Cython loops).  Every
 primitive operates on the *whole message set at once* as a padded uint8
 tensor on an explicit ``device`` (the caller's; there is no module-wide
-device and no size routing: each call runs on the device it is given):
+device).  Each call runs on the device it is given; under ``"auto"`` it
+is placed as urh_tpu places it: the CPU below DEVICE_MIN_CELLS cells
+(scaled by the measured dispatch cost), else a race of the card and the
+CPU under urh_tpu's key (:func:`urh_tpu_torch.util.placement.run`):
 
 * messages are packed once on the host into ``(N, L)`` uint8 + ``(N,)``
   lengths (:func:`pack_messages`), L bucketed to powers of two;
@@ -33,6 +36,10 @@ import torch
 import torch.nn.functional as F
 
 from urh_tpu_torch.core.iq import resolve_device
+from urh_tpu_torch.util import placement
+
+# below this many cells a call goes to the CPU under device="auto"
+DEVICE_MIN_CELLS = 1 << 16
 
 _PAD = 255  # uint8 padding sentinel; real alphabets are bits (0/1) or nibbles
 _ALPHABET = 16  # uint8 symbol values of the occurrence search: bits or nibbles
@@ -49,6 +56,11 @@ def _bucket(n: int) -> int:
 
 def _to(array: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(array)).to(resolve_device(device))
+
+
+def use_device(n_cells: int) -> bool:
+    """urh_tpu's size rule for a placed call (needs the card's probe)."""
+    return n_cells >= placement.scaled_threshold(DEVICE_MIN_CELLS)
 
 
 def pack_messages(vectors) -> tuple:
@@ -87,17 +99,23 @@ def first_difference_matrix(data: np.ndarray, lengths: np.ndarray, device=None) 
     is clamped there, matching awre_util.pyx:46-68 exactly.
     """
     n, width = data.shape
-    out = np.zeros((n, n), dtype=np.int32)
     if n < 2:
-        return out
+        return np.zeros((n, n), dtype=np.int32)
     # bound block memory at ~64 Mi compare cells
     rows_per_block = max(1, (1 << 26) // max(1, n * width))
-    dev_data, dev_lens = _to(data, device), _to(lengths, device)
-    for lo in range(0, n, rows_per_block):
-        hi = min(n, lo + rows_per_block)
-        out[lo:hi] = _first_diff_block(dev_data[lo:hi], dev_lens[lo:hi], dev_data,
-                                       dev_lens).cpu().numpy()
-    return out
+
+    def run(dev):
+        out = np.zeros((n, n), dtype=np.int32)
+        dev_data, dev_lens = _to(data, dev), _to(lengths, dev)
+        for lo in range(0, n, rows_per_block):
+            hi = min(n, lo + rows_per_block)
+            out[lo:hi] = _first_diff_block(dev_data[lo:hi], dev_lens[lo:hi], dev_data,
+                                           dev_lens).cpu().numpy()
+        return out
+
+    # an O(N^2) result: which side wins depends on the link, so it is raced
+    return placement.run("awre.first_difference_matrix", lambda: use_device(n * n * width),
+                         device, run)
 
 
 # ---------------------------------------------------------------------------
@@ -130,8 +148,10 @@ def column_agreement(data: np.ndarray, lengths: np.ndarray, alphabet_size: int =
     longest = int(lengths.max()) if n else 0
     if n < 2 or longest == 0:
         return np.zeros(longest, dtype=np.float64)
-    counts = _column_value_counts(_to(data, device), _to(lengths, device),
-                                  alphabet_size).cpu().numpy()
+    counts = placement.run(
+        "awre.column_value_counts", lambda: use_device(n * longest * alphabet_size), device,
+        lambda dev: _column_value_counts(_to(data, dev), _to(lengths, dev),
+                                         alphabet_size).cpu().numpy())
     counts = counts[:, :longest].astype(np.float64)
     equal_pairs = (counts * (counts - 1.0) / 2.0).sum(axis=0)
     return equal_pairs / (n * (n - 1) / 2)
@@ -161,10 +181,15 @@ def ngram_values(data: np.ndarray, lengths: np.ndarray, n: int, device=None) -> 
 
     Returns (values (N, M) int64, avail (N, M) bits available per gram).
     Partial tail grams use only the available bits (value >> missing),
-    matching bit_array_to_number(bv, min(len, j+n), j).
+    matching bit_array_to_number(bv, min(len, j+n), j).  Under ``"auto"``
+    an n above 30 stays on the CPU, as urh_tpu keeps it on its host.
     """
-    values, avail = _ngram_matrix(_to(data, device), _to(lengths, device), n)
-    return values.cpu().numpy(), avail.cpu().numpy()
+    def run(dev):
+        values, avail = _ngram_matrix(_to(data, dev), _to(lengths, dev), n)
+        return values.cpu().numpy(), avail.cpu().numpy()
+
+    return placement.run(f"awre.ngram_matrix:{n}", lambda: n <= 30 and use_device(data.size),
+                         device, run)
 
 
 def seqnum_delta_matrix(data: np.ndarray, lengths: np.ndarray, n: int,
@@ -261,8 +286,8 @@ def iter_occurrence_chunks(data: np.ndarray, lengths: np.ndarray, patterns,
     # full (masked) window
     ext = np.full((n, width + pmax), _PAD, dtype=np.uint8)
     ext[:, :width] = data
-    ignore = _to(_ignore_vector(ignore_columns, width + pmax), device)
-    ext, lens, pat, plens = (_to(a, device) for a in (ext, lengths, pat, plens))
+    arrays = (ext, lengths, pat, plens, _ignore_vector(ignore_columns, width + pmax))
+    on_device = {}  # each device's copy of the arrays, made at its first chunk
     starts = width
 
     k_chunk = max(1, min(k, max_cells // max(1, starts * pmax)))
@@ -271,9 +296,20 @@ def iter_occurrence_chunks(data: np.ndarray, lengths: np.ndarray, patterns,
         row_hi = min(n, row_lo + n_chunk)
         for pat_lo in range(0, k, k_chunk):
             pat_hi = min(k, pat_lo + k_chunk)
-            hit = _occurrence(ext[row_lo:row_hi], lens[row_lo:row_hi], pat[pat_lo:pat_hi],
-                              plens[pat_lo:pat_hi], ignore)
-            yield (row_lo, pat_lo), hit.cpu().numpy()
+
+            def run(dev, row_lo=row_lo, row_hi=row_hi, pat_lo=pat_lo, pat_hi=pat_hi):
+                if dev not in on_device:
+                    on_device[dev] = [_to(a, dev) for a in arrays]
+                ext_d, lens_d, pat_d, plens_d, ignore_d = on_device[dev]
+                return _occurrence(ext_d[row_lo:row_hi], lens_d[row_lo:row_hi],
+                                   pat_d[pat_lo:pat_hi], plens_d[pat_lo:pat_hi],
+                                   ignore_d).cpu().numpy()
+
+            # raced once a chunk shape, under urh_tpu's key
+            key = (f"awre.occurrence:{_bucket(row_hi - row_lo)}x"
+                   f"{pat_hi - pat_lo}x{starts}x{pmax}")
+            yield (row_lo, pat_lo), placement.run(key, lambda: use_device(n * k * starts),
+                                                  device, run)
 
 
 def occurrence_matrix(data: np.ndarray, lengths: np.ndarray, patterns,
@@ -393,8 +429,12 @@ def batched_crc(messages: np.ndarray, polynomial, start_value, final_xor,
               bool(little_endian))
     g, c0 = _crc_generator_matrix(params, length)
     width = g.shape[1]
-    sums = _to(messages, device).to(torch.float32) @ _to(g, device).to(torch.float32)
-    bits = (sums.round().to(torch.int32) & 1).cpu().numpy()
+
+    def run(dev):
+        sums = _to(messages, dev).to(torch.float32) @ _to(g, dev).to(torch.float32)
+        return (sums.round().to(torch.int32) & 1).cpu().numpy()
+
+    bits = placement.run("awre.batched_crc_matmul", lambda: use_device(n * length), device, run)
     bits ^= c0.astype(np.int32)
     weights = (1 << np.arange(width - 1, -1, -1)).astype(np.int64)
     return bits.astype(np.int64) @ weights

@@ -34,8 +34,8 @@ from urh_tpu_torch.awre.engines.length import LengthEngine
 from urh_tpu_torch.awre.engines.sequence_number import SequenceNumberEngine
 from urh_tpu_torch.awre.preprocessor import Preprocessor
 from urh_tpu_torch.coding.wsp import WSPChecksum
-from urh_tpu_torch.core.iq import resolve_device
 from urh_tpu_torch.protocol.labels import ChecksumLabel, FieldType, MessageType
+from urh_tpu_torch.util import placement
 
 _F = FieldType.Function
 
@@ -60,8 +60,9 @@ class FormatFinder:
 
     def __init__(self, messages, participants=None, shortest_field_length=None, device=None):
         # every engine's batched programs run here: the CUDA card by
-        # default, RuntimeError without one (pass device="cpu")
-        self.device = resolve_device(device)
+        # default, RuntimeError without one (pass device="cpu"); "auto" is
+        # kept and handed on, so that each call is placed
+        self.device = placement.requested(device)
         if participants is not None:
             auto_assigner.auto_assign_participants(messages, participants)
 

@@ -27,8 +27,11 @@ import torch
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``device`` when given, else the
     CUDA card.  Without a card the default raises instead of moving to the
-    CPU; pass ``device="cpu"`` for the plain PyTorch versions."""
-    if device is None:
+    CPU; pass ``device="cpu"`` for the plain PyTorch versions.  ``"auto"``
+    resolves to the card as the default does: the routes that place work
+    between the card and the CPU (:mod:`urh_tpu_torch.util.placement`)
+    read it before it gets here."""
+    if device is None or (isinstance(device, str) and device == "auto"):
         if not torch.cuda.is_available():
             raise RuntimeError("urh_tpu_torch runs on a CUDA device by default "
                                "and none is available; pass device='cpu'")

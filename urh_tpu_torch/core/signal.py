@@ -4,9 +4,11 @@ PyTorch port of urh_tpu.core.signal (behavioral counterpart of
 urh/signalprocessing/Signal.py, without Qt).  Holds an :class:`IQData`
 plus the demodulation parameters and the device the signal is
 demodulated on; caches the quadrature-demodulated ("rectangular") signal
-as a tensor on that device.  File loaders cover ``.complex*`` raw
-formats, ``.wav``, Flipper ``.sub`` and ``.coco`` (bz2 tar) archives
-(Signal.py:85-213).
+as a tensor on that device.  A signal made with ``device="auto"`` lives
+on the card and hands ``"auto"`` to the calls urh_tpu places (estimation,
+``afp_demod`` of the samples, awre), which may run them on the CPU.  File
+loaders cover ``.complex*`` raw formats, ``.wav``, Flipper ``.sub`` and
+``.coco`` (bz2 tar) archives (Signal.py:85-213).
 """
 
 from __future__ import annotations
@@ -21,16 +23,19 @@ import wave
 import numpy as np
 import torch
 
-from urh_tpu_torch.core.iq import IQData, min_max_for_dtype, resolve_device
+from urh_tpu_torch.core.iq import IQData, min_max_for_dtype
 from urh_tpu_torch.dsp import demod as _demod
 from urh_tpu_torch.dsp import fused_kernels as _fk
 from urh_tpu_torch.dsp.demod import DemodParams
+from urh_tpu_torch.util import placement
 
 
 class Signal:
     def __init__(self, filename: str = "", name: str = "Signal", modulation: str = "FSK",
                  sample_rate: float = 1e6, device=None):
-        self.device = resolve_device(device)
+        # the device as asked for, "auto" kept for the placed calls
+        self.requested_device = placement.requested(device)
+        self.device = placement.place(device)[0]
         self.name = name
         self.filename = filename
         self.timestamp = 0.0
@@ -322,9 +327,9 @@ class Signal:
 
     def quad_demod(self) -> torch.Tensor:
         if self.params.noise_threshold < self.max_magnitude:
-            x = self.iq_array.staged_planes(self.device)
             if self._fused_demod_eligible():
-                x = x.to(torch.float32)  # raw units, converted on the device
+                # raw units, converted on the device
+                x = self.iq_array.staged_planes(self.device).to(torch.float32)
                 if self.params.modulation == "ASK":
                     qad, states = _fk.ask_demod_symbolize(
                         x,
@@ -341,12 +346,15 @@ class Signal:
                 self.__pending_states = states
                 return qad
             return _demod.afp_demod(
-                x,
+                # a placed call gets the host samples, as urh_tpu's does
+                self.iq_array.data if placement.is_auto(self.requested_device)
+                else self.iq_array.staged_planes(self.device),
                 self.params.noise_threshold,
                 self.params.modulation,
                 self.params.modulation_order,
                 self.params.costas_loop_bandwidth,
                 dtype=self.iq_array.dtype,
+                device=self.requested_device,
             )
         return torch.zeros(2, dtype=torch.float32, device=self.device)
 
@@ -367,7 +375,7 @@ class Signal:
         if not detect_modulation:
             kwargs["modulation"] = self.params.modulation
 
-        result = estimate(self.iq_array, device=self.device, **kwargs)
+        result = estimate(self.iq_array, device=self.requested_device, **kwargs)
         if result is None:
             return False
         self.noise_threshold = result["noise"]
@@ -379,7 +387,7 @@ class Signal:
 
     # -- editing ops (Signal.py:611-651) ---------------------------------
     def create_new(self, start=0, end=0, new_data=None) -> "Signal":
-        sig = Signal("", device=self.device)
+        sig = Signal("", device=self.requested_device)
         if new_data is None:
             sig.iq_array = IQData(self.iq_array[start:end], skip_conversion=True)
         else:
@@ -423,7 +431,7 @@ class Signal:
             self._qad[start:end] = _demod.afp_demod(
                 self.iq_array[start:end], self.params.noise_threshold,
                 self.params.modulation, self.params.modulation_order,
-                self.params.costas_loop_bandwidth, device=self.device)
+                self.params.costas_loop_bandwidth, device=self.requested_device)
             self.__qad_states = None
 
     @staticmethod

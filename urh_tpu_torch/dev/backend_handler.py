@@ -3,8 +3,8 @@
 Probes which device backends are importable/available.  In this build
 the native SDR vendor libraries are optional host dependencies; the
 Network SDR (TCP) backend is always available and doubles as the test
-device.  The port's settings store is read-only: a backend choice is read
-from it, never written.
+device.  A backend's choice and enabled flag are read from and written to
+the settings store (urh_tpu's file, urh_tpu's keys).
 """
 
 from __future__ import annotations
@@ -52,6 +52,12 @@ class BackendContainer:
     @property
     def has_gnuradio_backend(self):
         return Backends.grc in self.avail_backends
+
+    def set_enabled(self, enabled: bool):
+        settings.write(self.name + "_is_enabled", enabled)
+
+    def write_settings(self):
+        settings.write(self.name + "_selected_backend", self.selected_backend.name)
 
     def __repr__(self):
         return "avail backends: {0} | selected backend: {1}".format(

@@ -20,8 +20,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from urh_tpu_torch.core.iq import (max_magnitude_for_dtype, normalize_scale_shift,
-                                   resolve_device)
+from urh_tpu_torch.core.iq import max_magnitude_for_dtype, normalize_scale_shift
+from urh_tpu_torch.util import placement
+
+# under device="auto", fewer samples (scaled by the dispatch cost) go to the CPU
+DEVICE_MIN_DEMOD_SAMPLES = 1 << 16
 
 NOISE_FSK_PSK = -4.0
 NOISE_ASK = 0.0
@@ -120,7 +123,10 @@ def afp_demod(
 
     ``samples``: (N, 2) numpy array or tensor in any ingest dtype, raw
     units.  A tensor is demodulated on its own device; numpy goes to
-    ``device`` (default: the CUDA card).  ``dtype`` overrides the dtype
+    ``device`` (default: the CUDA card).  Under ``"auto"`` urh_tpu's rule
+    places numpy that is not PSK: the card from DEVICE_MIN_DEMOD_SAMPLES
+    samples while the I/O cost (8 B a sample up, 4 back) stays within 2 ns
+    a sample, else the CPU.  ``dtype`` overrides the dtype
     used for scale constants (defaults to the samples').  Semantics of
     signal_functions.pyx:333-378.  ``mod_order`` and
     ``costas_loop_bandwidth`` are the Costas loop's, for PSK.  OQPSK
@@ -133,7 +139,15 @@ def afp_demod(
     else:
         samples = np.asarray(samples)
         src_dtype = samples.dtype
-        x = torch.from_numpy(np.ascontiguousarray(samples)).to(resolve_device(device))
+        n = len(samples)
+        if mod_type == "PSK":  # urh_tpu runs every PSK capture on its device
+            dev = placement.place(device)[0]
+        else:
+            dev, _ = placement.choose(
+                "dsp.afp_demod", device,
+                lambda: n >= placement.scaled_threshold(DEVICE_MIN_DEMOD_SAMPLES)
+                and placement.device_io_cost_s(8 * n, 4 * n) <= n * 2e-9)
+        x = torch.from_numpy(np.ascontiguousarray(samples)).to(dev)
     dtype = np.dtype(dtype) if dtype is not None else np.dtype(src_dtype)
     n = len(x)
     if n <= 2:

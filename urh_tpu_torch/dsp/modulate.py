@@ -16,12 +16,13 @@ Equivalent of the reference's per-symbol synthesis loop
   tensor on the device: a Python-float divisor would let CUDA PyTorch
   multiply by its reciprocal, and ``t`` would no longer be urh_tpu's.
 
-There is no host route chosen by size (urh_tpu's DEVICE_MIN_BODY_SAMPLES):
-the synthesis runs on the given device.  A sample then differs from
-urh_tpu's host route only by the cosine and sine implementations, a few
-float32 ulps; GFSK's smoothed frequencies are also an ulp or two from
-np.convolve's float32 sums.  The ThreadPoolExecutor carrier
-pool of urh_tpu's host twin is not ported.
+The synthesis runs on the given device; under ``device="auto"`` a body
+below urh_tpu's DEVICE_MIN_BODY_SAMPLES synthesizes on the CPU and a
+larger one on the card, as urh_tpu chooses between its host twin and its
+device route.  A sample then differs from urh_tpu's host route only by
+the cosine and sine implementations, a few float32 ulps; GFSK's smoothed
+frequencies are also an ulp or two from np.convolve's float32 sums.  The
+ThreadPoolExecutor carrier pool of urh_tpu's host twin is not ported.
 """
 
 from __future__ import annotations
@@ -31,8 +32,11 @@ import math
 import numpy as np
 import torch
 
-from urh_tpu_torch.core.iq import resolve_device
 from urh_tpu_torch.dsp.demod import scalar_f32
+from urh_tpu_torch.util import placement
+
+# under device="auto", a body of fewer samples synthesizes on the CPU
+DEVICE_MIN_BODY_SAMPLES = 1 << 21
 
 # output types cast on the device (the Modulator's); others on the host
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32, np.dtype(np.int8): torch.int8,
@@ -186,7 +190,8 @@ def modulate(
     device=None,
 ) -> np.ndarray:
     """bits -> (total_samples, 2) IQ numpy array of ``dtype``, synthesized on
-    ``device`` (default: the CUDA card).
+    ``device`` (default: the CUDA card; ``"auto"``: the CPU for a body below
+    DEVICE_MIN_BODY_SAMPLES, the card from there).
 
     Semantics of signal_functions.pyx:56-177 (modulate_c/__modulate).
     """
@@ -196,7 +201,6 @@ def modulate(
     mt = modulation_type.lower()
     if mt not in ("ask", "fsk", "psk", "oqpsk", "gfsk"):
         raise ValueError(f"unknown modulation type {modulation_type}")
-    device = resolve_device(device)
 
     if mt == "oqpsk":
         if bits_per_symbol != 2:
@@ -206,6 +210,9 @@ def modulate(
     num_bits = len(bits)
     total_symbols = num_bits // bits_per_symbol
     total_samples = total_symbols * samples_per_symbol + pause
+    device, _ = placement.choose("dsp.modulate", device,
+                                 lambda: total_symbols * samples_per_symbol
+                                 >= DEVICE_MIN_BODY_SAMPLES)
     if num_bits == 0:
         return np.zeros((total_samples, 2), dtype=dtype)
 

@@ -5,7 +5,10 @@ transform with configurable window/overlap, dB conversion
 (util.pyx:38-48), fftshift + flip for display, `.fta` export and BGRA
 image rendering.  The STFT is a strided frame view (``unfold``) and one
 batched ``torch.fft.fft`` on the Spectrogram's device; only the float32
-dB image comes back to the host.
+dB image comes back to the host.  A Spectrogram made with
+``device="auto"`` places each dB image as urh_tpu does: on the card while
+the upload (8 B a sample) and the image (4 B a cell) cost at most 10 ns a
+cell, else on the CPU; its ``stft`` runs on the card.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ import math
 import numpy as np
 import torch
 
-from urh_tpu_torch.core.iq import IQData, resolve_device
+from urh_tpu_torch.core.iq import IQData
+from urh_tpu_torch.util import placement
 
 # symmetric windows, as jnp.hanning and its siblings give them (torch's
 # hann_window is periodic by default)
@@ -55,7 +59,7 @@ class Spectrogram:
 
     def __init__(self, samples, window_size=DEFAULT_FFT_WINDOW_SIZE,
                  overlap_factor=0.5, window_function="hanning", device=None):
-        self.device = resolve_device(device)
+        self.device = placement.requested(device)
         self._samples = np.zeros(1, dtype=np.complex64)
         self.samples = samples
         self.window_size = window_size
@@ -99,18 +103,23 @@ class Spectrogram:
         wf = self.window_function if isinstance(self.window_function, str) else "hanning"
         return samples, hop_size, num_frames, wf
 
-    def _upload(self, samples: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(samples, dtype=np.complex64)).to(
-            self.device)
+    @staticmethod
+    def _upload(samples: np.ndarray, device) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(samples, dtype=np.complex64)).to(device)
 
     def stft(self, samples: np.ndarray) -> np.ndarray:
         samples, hop_size, num_frames, wf = self._frame_params(samples)
-        out = _stft_device(self._upload(samples), self.window_size, hop_size, num_frames, wf)
+        out = _stft_device(self._upload(samples, placement.place(self.device)[0]), self.window_size,
+                           hop_size, num_frames, wf)
         return out.cpu().numpy()
 
     def _calculate_spectrogram(self, samples: np.ndarray) -> np.ndarray:
         samples, hop_size, num_frames, wf = self._frame_params(samples)
-        spectrogram = _stft_db_device(self._upload(samples), self.window_size, hop_size,
+        cells = num_frames * self.window_size
+        device, _ = placement.choose(
+            "dsp.spectrogram", self.device,
+            lambda: placement.device_io_cost_s(8 * len(samples), 4 * cells) <= cells * 10e-9)
+        spectrogram = _stft_db_device(self._upload(samples, device), self.window_size, hop_size,
                                       num_frames, wf).cpu().numpy()
         return np.fliplr(spectrogram)  # Y axis from negative to positive freq
 

@@ -200,3 +200,9 @@ def pulse_lens_from_runs(r_states: np.ndarray, r_starts: np.ndarray,
     merged_lens = np.add.reduceat(rec_lens, m_starts)
 
     return np.column_stack((m_states, merged_lens)).astype(np.int64)
+
+
+def find_nearest_center(sample: float, centers: np.ndarray) -> int:
+    """Index of the closest center (signal_functions.pyx:497-511)."""
+    diffs = (np.asarray(centers) - sample) ** 2
+    return int(np.argmin(diffs))

@@ -1,10 +1,9 @@
 """Plugin base classes (the first part of urh_tpu.plugins.manager).
 
 A ``Plugin`` carries a name, a description, an enabled flag and
-per-plugin settings read from the settings store
+per-plugin settings read from and written to the settings store
 (reference: plugins/Plugin.py:11-87); an ``SDRPlugin`` contributes a
-device backend.  The port's settings store is read-only, so a plugin
-reads its settings and does not write them.
+device backend.
 """
 
 from __future__ import annotations
@@ -38,6 +37,9 @@ class Plugin:
 
     def read_setting(self, key: str, default=None, type=str):
         return settings.read(self._settings_key(key), default, type=type)
+
+    def write_setting(self, key: str, value):
+        settings.write(self._settings_key(key), value)
 
     def load_description(self):
         """Reference plugins ship a descr.txt next to the module

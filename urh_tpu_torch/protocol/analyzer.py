@@ -464,12 +464,13 @@ class ProtocolAnalyzer:
 
     def auto_assign_labels(self):
         """Infer message types and labels with awre's FormatFinder, on the
-        signal's device when there is a signal, else on the default (the
-        CUDA card)."""
+        signal's device when there is a signal (placed when it was made with
+        device="auto"), else on the default (the CUDA card)."""
         from urh_tpu_torch.awre.format_finder import FormatFinder
 
         format_finder = FormatFinder(
-            self.messages, device=self.signal.device if self.signal is not None else None)
+            self.messages,
+            device=self.signal.requested_device if self.signal is not None else None)
         format_finder.run(max_iterations=10)
         self.message_types[:] = format_finder.message_types
         for msg_type, indices in format_finder.existing_message_types.items():
@@ -624,13 +625,14 @@ def demodulate(signal, params=None, device=None) -> list:
     """One-call demodulation: Signal (or IQ array) -> list of Messages.
 
     A Signal is demodulated on its own device; an IQ array on ``device``
-    (default: the CUDA card, RuntimeError without one)."""
-    from urh_tpu_torch.core.iq import resolve_device
+    (default: the CUDA card, RuntimeError without one; ``"auto"`` makes a
+    signal that places the calls urh_tpu places)."""
     from urh_tpu_torch.core.signal import Signal
+    from urh_tpu_torch.util import placement
 
     if not isinstance(signal, Signal):
         signal = Signal.from_iq(signal, device=device)
-    elif device is not None and resolve_device(device) != signal.device:
+    elif device is not None and placement.place(device)[0] != signal.device:
         raise ValueError(f"signal lives on {signal.device}, not {device}")
     if params is not None:
         signal.params = params

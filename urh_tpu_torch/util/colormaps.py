@@ -1,7 +1,7 @@
 """Spectrogram colormaps (host copy of urh_tpu.util.colormaps).
 
-The port reads the chosen map from the settings store and never writes it
-(urh_tpu's write_selected_colormap_to_settings belongs with the apps).
+The chosen map is read from and written to the settings store, urh_tpu's
+file, under urh_tpu's key ``spectrogram_colormap``.
 The reference ships matplotlib-derived 256-entry tables
 (urh/colormaps.py, 1,077 LoC of data).  Here the maps are generated
 procedurally from a small set of perceptual anchor colors with linear
@@ -97,6 +97,12 @@ def read_selected_colormap_name_from_settings() -> str:
 
     name = settings.read("spectrogram_colormap", default_colormap, str)
     return name if name in _ANCHORS else default_colormap
+
+
+def write_selected_colormap_to_settings(colormap_name: str):
+    from urh_tpu_torch.util import settings
+
+    settings.write("spectrogram_colormap", colormap_name)
 
 
 def load_colormap_from_settings():

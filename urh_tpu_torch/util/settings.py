@@ -1,19 +1,22 @@
-"""Reader of the user's settings store (the part of urh_tpu.util.settings
-that the port needs).
+"""The user's settings store (the part of urh_tpu.util.settings that the
+port needs).
 
 The store is urh_tpu's JSON file, ``$XDG_CONFIG_HOME/urh_tpu/settings.json``
 (``~/.config`` without XDG_CONFIG_HOME), so a setting made for urh_tpu, such
-as ``modulation_dtype``, holds for the port too.  The port reads it and
-never writes it.  The constants, the receive-buffer policy and the
-decoding chain names are urh_tpu's (``urh_tpu/util/settings.py``).
-``config_dir()`` also holds the user's ``decodings.txt``, which
-``util/project.py`` reads and writes: that file is not the store.
+as ``modulation_dtype``, holds for the port too, and one the port writes
+holds for urh_tpu.  :func:`write` replaces the file atomically (a
+temporary file in the same directory, then ``os.replace``), as urh_tpu's
+does.  The constants, the receive-buffer policy and the decoding chain
+names are urh_tpu's (``urh_tpu/util/settings.py``).  ``config_dir()`` also
+holds the user's ``decodings.txt``, which ``util/project.py`` reads and
+writes, and placement's ``placement_verdicts.json``: neither is the store.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import tempfile
 
 PIXELS_PER_PATH = 5000  # urh_tpu.util.settings: min/max pairs of a plot path
 SPECTRUM_BUFFER_SIZE = 2 ** 15
@@ -55,6 +58,27 @@ def read(key, default_value=None, type=str):
         return type(value)
     except (TypeError, ValueError):
         return default_value
+
+
+def write(key, value):
+    store = _load()
+    store[key] = value
+    try:
+        os.makedirs(_config_dir, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=_config_dir)
+        with os.fdopen(fd, "w") as f:
+            json.dump(store, f, indent=1)
+        os.replace(tmp, _settings_file)
+    except OSError:  # a read-only config dir keeps the value in this process
+        pass
+
+
+def all_keys():
+    return list(_load().keys())
+
+
+def sync():
+    """Nothing to flush: every write already replaced the file."""
 
 
 def get_receive_buffer_size(resume_on_full_receive_buffer: bool, spectrum_mode: bool) -> int:
