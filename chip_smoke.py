@@ -193,14 +193,36 @@
    same types and labels each time; the store holds the link's verdicts,
    and a fresh child replays them without racing; a race whose card route
    raises lets the exception out and keeps no verdict.
+16. The CLI and the UI's model layer, on the default device
+   (URH_TPU_TORCH_DEVICE unset), in a temporary config dir, calling
+   ``urh_tpu_torch.cli.main`` in this process: ``--estimate -file
+   capture.complex --hex`` of phase 6's 2^24-sample FSK capture (its quiet
+   lead leaves room for 360 messages): FSK at 100 samples a bit, every
+   message printed equal to the sent bits, B7 once a width bucket and K1
+   once; the same command as ``python -m urh_tpu_torch.cli`` in its own
+   process prints the same lines.  ``-tx -d "Network SDR"`` of the 367
+   messages of the FSK capture (a messages file, 20 ms pauses, FSK at
+   -25/+25 kHz) to a loopback receiver: every sample equal to
+   ``Modulator.modulate``'s of its message, the pauses zero, and
+   ``demodulate()`` of them (K1) gives the 367 messages.  ``-rx -d
+   RTL-TCP -rt 20 -file out.txt`` fed by the fake rtl_tcp server streaming
+   the int8 capture (the CLI's sniffer pointed at it: ROADMAP C6): the file
+   holds the 367 messages, ``urh_stream_block_i8`` once a drain, the child
+   exits 0.  Then the undo stack on a ``Signal`` of the float32 capture with
+   its protocol: the 51-tap band-pass over the whole capture (367 messages),
+   muting the first message and its pause (366: a muted FSK range decodes
+   as zeros joined to the next message, as in urh_tpu), an InsertSine of
+   10,000 samples into the first pause (368, one of ones); after each undo
+   the samples equal the original to the word and ``demodulate`` through K1
+   gives the 367 messages.  Walls printed.
 
 Every failed check raises.  The last three lines are a JSON ``kernels``
 summary, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``; the two lines before them have the offline PSK wall time, the
 stream's samples per second, the estimate() walls, the TX rate, the
 filter, spectrum, plot path and awre walls, the live loop's rates, the
-simulator's round walls, the RTL-TCP rate, the sharding walls and the
-placement verdicts and walls.  Without
+simulator's round walls, the RTL-TCP rate, the sharding walls, the
+placement verdicts and walls and the CLI's and the undo stack's walls.  Without
 a CUDA card the script exits non-zero before it prints any result.
 """
 
@@ -3293,6 +3315,458 @@ def placement_summary(placed: dict) -> str:
     return "; ".join(parts) + f"; FormatFinder {placed['awre']['walls']}"
 
 
+# -- the CLI and the UI's model layer (phase 16) -------------------------------
+
+CLI_RECEIVE_S = 20.0  # -rx's -rt: the RTL-TCP child's start (7-8 s) and the stream
+CLI_CHILD_TIMEOUT_S = 300
+CLI_TX_PAUSE = "20ms"  # 20,000 samples at 1 Msps: make_capture's pause
+CLI_SINE = dict(num_samples=10_000, frequency=10e3, amplitude=0.5)  # into a pause
+
+
+class LoopbackReceiver:
+    """A loopback server that reads one connection to its end: the Network
+    SDR's client a -tx sends to."""
+
+    def __init__(self):
+        import socket
+        import threading
+
+        self._srv = socket.socket()
+        self._srv.bind(("127.0.0.1", 0))
+        self._srv.listen(1)
+        self.port = self._srv.getsockname()[1]
+        self.chunks, self.error = [], None
+        self._thread = threading.Thread(target=self._serve, daemon=True)
+        self._thread.start()
+
+    def _serve(self):
+        try:
+            conn, _ = self._srv.accept()
+            with conn:
+                while chunk := conn.recv(1 << 20):
+                    self.chunks.append(chunk)
+        except OSError as exc:
+            self.error = exc
+        finally:
+            self._srv.close()
+
+    def samples(self) -> np.ndarray:
+        """Every float32 sample received, once the sender closed."""
+        self._thread.join(LIVE_DEADLINE_S)
+        if self._thread.is_alive() or self.error is not None:
+            raise AssertionError(f"-tx: the receiver did not read to the end ({self.error})")
+        return np.frombuffer(bytearray(b"".join(self.chunks)), np.float32).reshape(-1, 2)
+
+
+def cli_lines(argv) -> tuple:
+    """urh_tpu_torch.cli's main(argv) in this process: (stdout lines, wall)."""
+    import contextlib
+    import io
+
+    from urh_tpu_torch.cli import main as cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    return out.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def hex_lines(bits) -> list:
+    return [np.packbits(np.asarray(b, np.uint8)).tobytes().hex() for b in bits]
+
+
+def bit_lines(bits) -> list:
+    return ["".join(map(str, np.asarray(b, np.uint8).tolist())) for b in bits]
+
+
+def cli_estimate_step(device, folder: str, n: int, env: dict) -> dict:
+    """--estimate -file capture.complex --hex in this process on the
+    estimated FSK capture (phase 6's: a quiet lead, 360 messages), the
+    launch counts set to 0 just before and read just after; then the same
+    command started in its own process (python -m urh_tpu_torch.cli),
+    whose output cli_and_ui_phase reads once -rx is done."""
+    iq, bits = make_capture("FSK", n, 11, lead=quiet_lead(n))
+    path = os.path.join(folder, "capture.complex")
+    iq.tofile(path)
+    argv = ["--estimate", "-file", path, "--hex"]
+    buckets = width_buckets(iq)
+    reset_launches()
+    lines, wall = cli_lines(argv)
+    counts = read_launches()
+    head, messages = lines[:5], lines[5:]
+    print(f"cli --estimate ({n} samples): {head}; {len(messages)} messages; wall {wall} s; "
+          f"launches B7 {counts['median_filter_f32']} ({buckets} width buckets), K1 "
+          f"{counts['fsk_f32']}", flush=True)
+    if head[:2] != ["modulation: FSK", "samples_per_symbol: 100"]:
+        raise AssertionError(f"cli --estimate: {head}")
+    if messages != hex_lines(bits):
+        raise AssertionError(f"cli --estimate: {len(messages)} messages printed, "
+                             f"{sum(a == b for a, b in zip(messages, hex_lines(bits)))} "
+                             f"of {len(bits)} equal to the sent bits")
+    if counts["median_filter_f32"] != buckets or counts["fsk_f32"] != 1:
+        raise AssertionError(f"cli --estimate: launches {counts}, {buckets} width buckets")
+    return {"wall": wall, "lines": lines, "child": CliChild(argv, env),
+            "b7": counts["median_filter_f32"], "k1": counts["fsk_f32"]}
+
+
+class CliChild:
+    """``python -m urh_tpu_torch.cli argv`` in its own process, read to its
+    end on a thread: its output and its wall from start to exit."""
+
+    def __init__(self, argv, env: dict):
+        import threading
+
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, "-m", "urh_tpu_torch.cli", *argv],
+                                     env=env, cwd=os.path.dirname(os.path.abspath(__file__)),
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self.out = self.err = ""
+        self.wall = None
+
+        def read():
+            try:
+                self.out, self.err = self.proc.communicate(timeout=CLI_CHILD_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+            self.wall = time.perf_counter() - t0
+
+        self._thread = threading.Thread(target=read, daemon=True)
+        self._thread.start()
+
+    def result(self) -> tuple:
+        """(exit code, stdout lines, stderr, wall) once it ended."""
+        self._thread.join(CLI_CHILD_TIMEOUT_S + LIVE_DEADLINE_S)
+        if self._thread.is_alive():
+            self.proc.kill()
+            raise AssertionError("cli --estimate child: still running")
+        return self.proc.returncode, self.out.splitlines(), self.err, self.wall
+
+
+def cli_estimate_child(estimated: dict) -> float:
+    """The --estimate child's lines must be this process's; -> its wall."""
+    code, lines, err, wall = estimated["child"].result()
+    print(f"cli --estimate as python -m urh_tpu_torch.cli: exit code {code}, its lines equal "
+          f"this process's {lines == estimated['lines']}, wall {wall} s (from its start to its "
+          f"exit, beside -tx and -rx)", flush=True)
+    if code != 0 or lines != estimated["lines"]:
+        raise AssertionError(f"cli --estimate child: exit code {code}, {err[-2000:]}")
+    return wall
+
+
+def cli_transmit_step(device, folder: str, iq: np.ndarray, bits) -> dict:
+    """-tx -d "Network SDR" of the capture's messages (a messages file) to a
+    loopback receiver: every sample equal to Modulator.modulate's of its
+    message, the pauses zero, and demodulate() of what arrived (K1) gives
+    every message."""
+    import urh_tpu_torch as ut
+    from urh_tpu_torch.cli import main as cli
+    from urh_tpu_torch.dsp import fused_kernels as fk
+    from urh_tpu_torch.util import settings
+
+    path = os.path.join(folder, "messages.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(bit_lines(bits)) + "\n")
+    receiver = LoopbackReceiver()
+    settings.write("network_sdr_client_port", receiver.port)
+    lines, wall = cli_lines(["-tx", "-d", NETWORK_SDR, "-f", "433.92e6", "-s", "1e6", "-mo",
+                             "FSK", "-sps", "100", "-pm", "-25000", "25000", "-p", CLI_TX_PAUSE,
+                             "-file", path])
+    got = receiver.samples()
+    # the CLI's modulator: its flags, then its defaults
+    modulator = ut.Modulator("CLI Modulator")
+    modulator.modulation_type, modulator.samples_per_symbol = "FSK", 100
+    modulator.sample_rate, modulator.parameters = 1e6, [-25e3, 25e3]
+    modulator.carrier_freq_hz = cli.DEFAULT_CARRIER_FREQUENCY
+    modulator.carrier_amplitude = cli.DEFAULT_CARRIER_AMPLITUDE
+    modulator.carrier_phase_deg = cli.DEFAULT_CARRIER_PHASE
+    body, pause = modulator.samples_per_symbol * len(bits[0]), 20_000
+    if got.shape != (len(bits) * (body + pause), 2):
+        raise AssertionError(f"cli -tx: {got.shape} samples received")
+    t0 = time.perf_counter()
+    for i, b in enumerate(bits):
+        start = i * (body + pause)
+        want = modulator.modulate("".join(map(str, b)), pause=0, device=device).data
+        if not np.array_equal(got[start:start + body], want) or got[start + body:
+                                                                   start + body + pause].any():
+            raise AssertionError(f"cli -tx: message {i}'s samples differ from "
+                                 "Modulator.modulate's")
+    modulate_wall = time.perf_counter() - t0
+    reset_launches()
+    check_messages(ut.demodulate(got, demod_params("FSK", np.float32), device=device), bits,
+                   "cli -tx, demodulated")
+    if fk.LAUNCHES["fsk_f32"] != 1:
+        raise AssertionError(f"cli -tx: demodulate() launches {fk.LAUNCHES}")
+    sent = [line for line in lines if "Successfully modulated" in line]
+    print(f"cli -tx over the Network SDR: {sent}; {len(got)} samples received, each "
+          f"equal to Modulator.modulate's ({modulate_wall} s for {len(bits)} calls), the "
+          f"pauses zero; demodulate() (K1) gives the {len(bits)} messages; wall {wall} s "
+          f"({len(got) / wall} samples/s)", flush=True)
+    return {"wall": wall, "rate": len(got) / wall}
+
+
+def cli_receive_step(device, folder: str, iq: np.ndarray, bits,
+                     receive_s: float = CLI_RECEIVE_S) -> dict:
+    """-rx -d RTL-TCP -file out.txt, fed by a fake rtl_tcp server streaming
+    the int8 capture (as rtl_tcp_phase), then two pause gates of silence and
+    once those are fed one gate more: the file holds every message, and
+    urh_stream_block_i8 launched once a drain.  RTL-TCP ignores its port
+    (ROADMAP C6): the CLI's sniffer builder is wrapped to point the device at
+    the server, to count the drains and to time the messages."""
+    import contextlib
+    import io
+    import threading
+
+    from urh_tpu_torch.cli import main as cli
+    from urh_tpu_torch.core.iq import resolve_device
+    from urh_tpu_torch.dsp import stream_kernels as sk
+    from urh_tpu_torch.protocol import stream
+
+    i8 = to_int8(iq)
+    wire = (i8.astype(np.int16) + 128).astype(np.uint8)
+    gate = np.full((stream.PAUSE_GATE_SYMBOLS * 100, 2), 128, np.uint8)
+    out_path = os.path.join(folder, "out.txt")
+    build, built = cli.build_protocol_sniffer_from_args, threading.Event()
+    record = {"drains": [], "first_sample": None, "messages": []}
+
+    def wrapped(args):
+        sniffer = build(args)
+        dev = sniffer.rcv_device._dev
+        if type(dev).__name__ != "RTLSDRTCP" or sniffer.compute_device != resolve_device(
+                device):
+            raise AssertionError(f"cli -rx: {type(dev).__name__} on {sniffer.compute_device}")
+        dev.port = server.port
+        ingest, commit = sniffer._ingest, dev._commit_samples
+
+        def counted_ingest(chunk):
+            record["drains"].append(len(chunk))
+            ingest(chunk)
+
+        def timed_commit(samples):
+            if record["first_sample"] is None and len(samples):
+                record["first_sample"] = time.perf_counter()
+            return commit(samples)
+
+        sniffer._ingest, dev._commit_samples = counted_ingest, timed_commit
+        sniffer.message_sniffed.connect(
+            lambda _: record["messages"].append(time.perf_counter()))
+        record["sniffer"] = sniffer
+        built.set()
+        return sniffer
+
+    for counts in (sk.LAUNCHES, stream.FALLBACKS, stream.HOST_ROUTE):
+        for key in counts:
+            counts[key] = 0
+    faults = []
+    server = FakeRtlTcpServer()
+    argv = ["-rx", "-d", RTL_TCP, "-f", "433.92e6", "-s", "1e6", "-mo", "FSK", "-sps", "100",
+            "-c", "0", "-n", "0.15", "-t", "5", "-pm", "-25000", "25000", "-rt", str(receive_s),
+            "-file", out_path]
+
+    def run():
+        try:
+            cli.main(argv)
+        except (Exception, SystemExit) as exc:  # a thread's SystemExit is silent otherwise
+            faults.append(repr(exc))
+
+    cli.build_protocol_sniffer_from_args = wrapped
+    printed = io.StringIO()
+    try:
+        with ThreadFaults() as thread_faults, contextlib.redirect_stdout(printed):
+            t0 = time.perf_counter()
+            thread = threading.Thread(target=run, daemon=True)
+            thread.start()
+            if not built.wait(LIVE_DEADLINE_S):
+                raise AssertionError(f"cli -rx: no sniffer built ({faults})")
+            sniffer = record["sniffer"]
+            if not server.connected.wait(LIVE_DEADLINE_S):
+                raise AssertionError("cli -rx: the RTL-TCP child did not connect")
+            connect_s = time.perf_counter() - t0
+            server.send(wire.tobytes() + np.tile(gate, (LIVE_SILENCE_GATES, 1)).tobytes())
+            total = len(wire) + LIVE_SILENCE_GATES * len(gate)
+            wait_drained(sniffer, total, "cli -rx")
+            server.send(gate.tobytes())
+            wait_drained(sniffer, total + len(gate), "cli -rx")
+            wait_for(lambda: len(record["messages"]) >= len(bits), "cli -rx: every message")
+            fed_s = time.perf_counter() - t0
+            thread.join(receive_s + LIVE_DEADLINE_S)
+            wall = time.perf_counter() - t0
+            if thread.is_alive() or faults:
+                raise AssertionError(f"cli -rx: main() did not return ({faults})")
+            exitcode = sniffer.rcv_device._dev.receive_process.exitcode
+            thread_faults.check("cli -rx")
+    finally:
+        cli.build_protocol_sniffer_from_args = build
+        server.close()
+    with open(out_path) as f:
+        written = f.read().splitlines()
+    drains = record["drains"]
+    launches = sk.LAUNCHES["stream_block_i8"]
+    live_wall = record["messages"][-1] - record["first_sample"]
+    print(f"cli -rx over RTL-TCP: {printed.getvalue().split()[:4]}; {len(written)} messages "
+          f"written, equal to the sent bits {written == bit_lines(bits)}; the child connected "
+          f"{connect_s} s after main() started and exited {exitcode}; {len(drains)} drains, "
+          f"urh_stream_block_i8 launches {launches}; first sample received to the last "
+          f"message {live_wall} s ({(total + len(gate)) / live_wall} samples/s); every "
+          f"message in {fed_s} s, main() returned after {wall} s (-rt {receive_s})",
+          flush=True)
+    if written != bit_lines(bits):
+        raise AssertionError(f"cli -rx: {len(written)} messages written, sent {len(bits)}")
+    if launches != len(drains) or not launches or stream.FALLBACKS["states"] or any(
+            stream.HOST_ROUTE.values()) or sum(v for k, v in sk.LAUNCHES.items()
+                                               if k != "stream_block_i8") or exitcode != 0:
+        raise AssertionError(f"cli -rx: launches {sk.LAUNCHES} for {len(drains)} drains, "
+                             f"fallbacks {stream.FALLBACKS}, host route {stream.HOST_ROUTE}, "
+                             f"the child exited {exitcode}")
+    return {"wall": wall, "connect_s": connect_s, "live_wall": live_wall,
+            "drains": len(drains), "launches": launches}
+
+
+def undo_step(label: str, stack, proto, sig, iq: np.ndarray, bits, action) -> dict:
+    """Push an edit, check what it left, undo it: the samples equal to the
+    word and every message back through K1 (launched once).  -> walls."""
+    from urh_tpu_torch.dsp import fused_kernels as fk
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stack.push(action())
+    torch.cuda.synchronize()
+    do_wall = time.perf_counter() - t0
+    after = [np.frombuffer(bytes(m.plain_bits), np.uint8) for m in proto.messages]
+    t0 = time.perf_counter()
+    stack.undo()
+    undo_wall = time.perf_counter() - t0
+    if not np.array_equal(sig.iq_array.data, iq):
+        raise AssertionError(f"undo {label}: the samples differ from the original")
+    reset_launches()
+    t0 = time.perf_counter()
+    proto.get_protocol_from_signal()
+    torch.cuda.synchronize()
+    demod_wall = time.perf_counter() - t0
+    check_messages(proto.messages, bits, f"undo {label}, demodulated again")
+    if fk.LAUNCHES["fsk_f32"] != 1:
+        raise AssertionError(f"undo {label}: demodulated again with launches {fk.LAUNCHES}")
+    print(f"undo stack {label}: {len(after)} messages after it ({do_wall} s), undone in "
+          f"{undo_wall} s, samples equal to the word, {len(bits)} messages through K1 in "
+          f"{demod_wall} s", flush=True)
+    return {"after": after, "walls": (do_wall, undo_wall, demod_wall)}
+
+
+def undo_stack_phase(device, iq: np.ndarray, bits) -> dict:
+    """The undo stack's signal edits on a Signal of the capture on
+    ``device``, each with its protocol: the 51-tap band-pass over the whole
+    capture (every message), muting the first message and the pause after it
+    (a muted FSK range is zero frequency, decoded as zeros up to the next
+    message: one message fewer, the rest exact), an InsertSine into the
+    first pause (one message of ones more); each undone."""
+    from urh_tpu_torch import Signal
+    from urh_tpu_torch.dsp.filters import Filter
+    from urh_tpu_torch.plugins.insert_sine import InsertSinePlugin
+    from urh_tpu_torch.protocol.analyzer import ProtocolAnalyzer
+    from urh_tpu_torch.ui.actions import EditAction, EditSignalAction
+    from urh_tpu_torch.ui.undo import UndoStack
+
+    sig = Signal.from_iq(iq.copy(), device=device)
+    sig.params = demod_params("FSK", np.float32)
+    proto = ProtocolAnalyzer(sig)
+    reset_launches()
+    proto.get_protocol_from_signal()
+    check_messages(proto.messages, bits, "undo stack, first demodulation")
+    launches = read_launches()["fsk_f32"]
+    stack, n = UndoStack(), len(iq)
+    sent = [np.asarray(b, np.uint8) for b in bits]
+    fir = Filter(Filter.design_windowed_sinc_bandpass(*BANDPASS))
+    out = {}
+    out["filter"] = undo_step("filter", stack, proto, sig, iq, bits, lambda: EditSignalAction(
+        sig, EditAction.filter, start=0, end=n, dsp_filter=fir, protocol=proto))
+    launches += 1
+    if not all(np.array_equal(a, b) for a, b in zip(out["filter"]["after"], sent)) or len(
+            out["filter"]["after"]) != len(sent):
+        raise AssertionError("undo stack filter: the filtered capture's messages differ")
+    first = proto.messages[0].bit_sample_pos
+    out["mute"] = undo_step("mute", stack, proto, sig, iq, bits, lambda: EditSignalAction(
+        sig, EditAction.mute, start=int(first[0]), end=int(first[-1]), protocol=proto))
+    launches += 1
+    after = out["mute"]["after"]
+    if len(after) != len(sent) - 1 or not all(
+            np.array_equal(a, b) for a, b in zip(after[1:], sent[2:])) or not (
+            np.array_equal(after[0][-len(sent[1]):], sent[1])
+            and not after[0][:-len(sent[1])].any()):
+        raise AssertionError(f"undo stack mute: {len(after)} messages after muting the first")
+    sine = InsertSinePlugin()
+    for key, value in CLI_SINE.items():
+        setattr(sine, key, value)
+    wave = sine.generate_sine_wave(sig.iq_array.dtype)
+    position = int(first[-2]) + 20_000 // 2 - len(wave) // 2  # [-2]: the message's end
+    out["insert"] = undo_step("InsertSine", stack, proto, sig, iq, bits, lambda: (
+        EditSignalAction(sig, EditAction.insert, position=position, data_to_insert=wave,
+                         protocol=proto)))
+    launches += 1
+    after = out["insert"]["after"]
+    if len(after) != len(sent) + 1 or not after[1].all() or not all(
+            np.array_equal(a, b) for a, b in zip(after[:1] + after[2:], sent)):
+        raise AssertionError(f"undo stack InsertSine: {len(after)} messages after it")
+    print(f"undo stack: the mute left a first message of {len(out['mute']['after'][0])} bits; "
+          f"the sine a message of {len(after[1])} ones", flush=True)
+    return {"walls": {k: v["walls"] for k, v in out.items()}, "k1": launches}
+
+
+def cli_and_ui_phase(device, identity: str, n: int = N_FULL,
+                     receive_s: float = CLI_RECEIVE_S) -> dict:
+    """The port's CLI (urh_tpu_torch.cli.main, in this process, so the
+    launch counts can be read) on ``device`` (None: the card, with
+    URH_TPU_TORCH_DEVICE unset) in a temporary config dir: --estimate of the
+    estimated FSK capture, also as python -m urh_tpu_torch.cli in its own
+    process; -tx of the FSK capture's messages over the Network SDR; -rx
+    over RTL-TCP of the int8 capture; then the undo stack's edits of the
+    capture.  -> walls and the launches of K1, B7 and B6 int8 on this path."""
+    import tempfile
+
+    from urh_tpu_torch.cli import main as cli
+    from urh_tpu_torch.util import logging as urh_logging
+    from urh_tpu_torch.util import settings
+
+    folder = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    os.makedirs(folder, exist_ok=True)
+    saved_env, level = os.environ.get(cli.DEVICE_ENV), urh_logging.logger.level
+    saved_log_path = urh_logging.LOG_LEVEL_PATH
+    with tempfile.TemporaryDirectory(dir=folder) as home:
+        settings._config_dir = os.path.join(home, "urh_tpu")
+        settings._settings_file = os.path.join(settings._config_dir, "settings.json")
+        settings._store = None
+        urh_logging.LOG_LEVEL_PATH = os.path.join(home, "log_level")
+        if device is None:
+            os.environ.pop(cli.DEVICE_ENV, None)
+        else:
+            os.environ[cli.DEVICE_ENV] = str(device)
+        env = dict(os.environ, XDG_CONFIG_HOME=home)
+        try:
+            t0 = time.perf_counter()
+            estimated = cli_estimate_step(device, home, n, env)
+            try:
+                iq, bits = make_capture("FSK", n, 11)
+                transmitted = cli_transmit_step(device, home, iq, bits)
+                received = cli_receive_step(device, home, iq, bits, receive_s)
+            finally:
+                child_wall = cli_estimate_child(estimated)
+            undone = undo_stack_phase(device, iq, bits)
+            wall = time.perf_counter() - t0
+        finally:
+            urh_logging.LOG_LEVEL_PATH = saved_log_path
+            urh_logging.logger.setLevel(level)
+            if saved_env is None:
+                os.environ.pop(cli.DEVICE_ENV, None)
+            else:
+                os.environ[cli.DEVICE_ENV] = saved_env
+    out = {"estimate": estimated["wall"], "estimate_child": child_wall,
+           "tx": transmitted, "rx": received, "undo": undone["walls"], "wall": wall,
+           "launches": {"fsk_f32": estimated["k1"], "median_filter_f32": estimated["b7"],
+                        "stream_block_i8": received["launches"]},
+           "undo_k1": undone["k1"]}
+    print(f"cli and UI phase: {wall} s on {identity}", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
@@ -3345,6 +3819,8 @@ def main():
     elapsed("B9 and the sharded and distributed paths")
     placed = placement_phase(identity)
     elapsed("placement")
+    cli_ui = cli_and_ui_phase(None, identity)  # None: the default device
+    elapsed("the CLI and the UI's model layer")
 
     rows = []
     for key, k in KERNELS.items():
@@ -3359,6 +3835,8 @@ def main():
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(byte_ms, op_ms),
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
             "library_ms": None,
+            **({"cli_launches": cli_ui["launches"]["fsk_f32"],
+                "undo_launches": cli_ui["undo_k1"]} if key == "fsk_f32" else {}),
         })
     bound, bound_by = b5_bound_ms(B5_TIMED_N, clock)
     rows.append({
@@ -3378,7 +3856,8 @@ def main():
             "launches": launches[key],
             **({"live_launches": live["fsk"]["launches"],
                 "simulator_launches": simulated["launches"]} if ingest == "f32"
-               else {"live_launches": rtl["launches"]}),
+               else {"live_launches": rtl["launches"],
+                     "cli_launches": cli_ui["launches"]["stream_block_i8"]}),
             "max_abs_err": b6["err"][ingest],
             "state_mismatches": b6["mismatch"][ingest], "ms": ms,
             "chunk_ms": b6["timings"][(ingest, STREAM_CHUNK)][0], "plain_ms": plain_ms,
@@ -3398,6 +3877,7 @@ def main():
         **{f"large_{key}": v for key, v in b7["timings"][B7_LARGE].items()},
         "large_bound_ms": large_bound, "outputs_a_thread": b7["variant"]["outputs"],
         "registers": b7["variant"]["registers"], "placement_launches": placed["b7_launches"],
+        "cli_launches": cli_ui["launches"]["median_filter_f32"],
     })
     bound, bound_by = b8_bound_ms(B8_TIMED_N, b8["cycles"], clock)
     rows.append({
@@ -3439,7 +3919,11 @@ def main():
         f"{rtl['rate']} samples/s, the child connected in {rtl['connect_s']} s; sharding "
         f"{sharding['walls']}, the distributed child ({sharding['backend']}) "
         f"{sharding['child_wall']} s, block-parallel PSK messages exact "
-        f"{sharding['relocked']}; placement {placement_summary(placed)} on {identity}",
+        f"{sharding['relocked']}; placement {placement_summary(placed)}; CLI --estimate "
+        f"{cli_ui['estimate']} s (as its own process {cli_ui['estimate_child']} s), -tx "
+        f"{cli_ui['tx']['rate']} samples/s, -rx over RTL-TCP {cli_ui['rx']['drains']} drains, "
+        f"the child connected in {cli_ui['rx']['connect_s']} s; undo stack (do, undo, "
+        f"demodulate again, s) {cli_ui['undo']}; the phase {cli_ui['wall']} s on {identity}",
         flush=True)
     print(json.dumps({"kernels": rows}))
     print(identity)

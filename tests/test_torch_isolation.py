@@ -122,6 +122,21 @@ assert message_bits(pulses) == ["".join(map(str, bits))]
 assert sharded.sharded_psk_demod(iq[:2000], 0.1, mesh=mesh).shape == (2000,)
 assert len(distributed.distributed_fir_filter(iq[:, 0], [1.0, 0.5],
                                               mesh=distributed.global_mesh(2, device="cpu"))) == 2
+import urh_tpu_torch.cli.main
+import urh_tpu_torch.plugins
+import urh_tpu_torch.ui.actions
+import urh_tpu_torch.ui.models
+import urh_tpu_torch.ui.plots
+import urh_tpu_torch.ui.png
+import urh_tpu_torch.ui.widgets
+from urh_tpu_torch.plugins import PluginManager
+assert len(PluginManager().installed_plugins) == 6
+from urh_tpu_torch.ui.actions import EditAction, EditSignalAction
+from urh_tpu_torch.ui.undo import UndoStack
+stack = UndoStack()
+stack.push(EditSignalAction(sig, EditAction.mute, start=0, end=1000))
+stack.undo()
+assert [m.plain_bits_str for m in ut.demodulate(sig)] == ["".join(map(str, bits))]
 loaded = [m for m in sys.modules if m == "urh_tpu" or m.startswith("urh_tpu.")]
 assert not loaded, loaded
 print("ok")
@@ -157,6 +172,10 @@ def _port_sources():
 
 def test_sources_import_neither_jax_nor_urh_tpu():
     offenders = []
+    scanned = {os.path.relpath(path, ROOT) for path in _port_sources()}
+    for name in ("cli/main.py", "cli/__main__.py", "plugins/rfcat.py", "plugins/insert_sine.py",
+                 "ui/actions.py", "ui/models.py", "ui/plots.py", "ui/widgets.py"):
+        assert os.path.join("urh_tpu_torch", name) in scanned
     for path in _port_sources():
         with open(path) as f:
             offenders += [f"{path}: {m.group(0).strip()}"
@@ -262,8 +281,41 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
             call()
     with pytest.raises(RuntimeError, match="CUDA"):
         csv_to_signal(os.path.join(ROOT, "pyproject.toml"), device=auto)
+    # the CLI with URH_TPU_TORCH_DEVICE unset runs on the card: without one it
+    # raises, never falls back to the CPU; the UI's actions edit on the card
+    import multiprocessing
+
+    from urh_tpu_torch.cli import main as cli
+    from urh_tpu_torch.ui.actions import EditAction, EditSignalAction
+    from urh_tpu_torch.util import logging as urh_logging
+    from urh_tpu_torch.util import settings
+
+    monkeypatch.delenv(cli.DEVICE_ENV, raising=False)
+    monkeypatch.setattr(multiprocessing, "set_start_method", lambda *a, **k: None)
+    monkeypatch.setattr(urh_logging, "LOG_LEVEL_PATH", os.devnull)
+    monkeypatch.setattr(settings, "_store", {})
+    level = urh_logging.logger.level
+    capture = os.path.join(ROOT, "pyproject.toml")
+    radio = ["-f", "433.92e6", "-s", "1e6", "-pm", "0", "1", "-mo", "ASK"]
+    for argv in (["--estimate", "-file", capture],
+                 ["-tx", "-d", "Network SDR", "-m", "1010", *radio],
+                 ["-rx", "-d", "Network SDR", "-rt", "0", *radio]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(argv)
+    urh_logging.logger.setLevel(level)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EditSignalAction(Signal(), EditAction.mute, start=0, end=10)
     # an explicit device is honoured
     assert Signal.from_iq(iq, device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("value", ["gpu", "cuda:first", "npu"])
+def test_the_cli_refuses_an_unknown_compute_device(monkeypatch, value):
+    from urh_tpu_torch.cli import main as cli
+
+    monkeypatch.setenv(cli.DEVICE_ENV, value)
+    with pytest.raises(ValueError, match=cli.DEVICE_ENV):
+        cli.main(["--estimate", "-file", os.path.join(ROOT, "pyproject.toml")])
 
 
 def test_demodulate_rejects_a_device_other_than_the_signals():

@@ -12,7 +12,10 @@ or a hardware device such as RTL-TCP, ``protocol.generator.GeneratorBackend``,
 ``dsp.continuous_modulator.ContinuousModulator``), the stateful
 simulator (``sim.simulator.Simulator``) and the block-sharded pipeline
 (``parallel.sharded``, across processes ``parallel.distributed``) run on
-a CUDA card, with the kernels written by hand in CUDA C++ (``csrc/``).  Entry points run on the card unless the caller
+a CUDA card, with the kernels written by hand in CUDA C++ (``csrc/``).
+The command-line interface (``python -m urh_tpu_torch.cli``), the plugins
+(``plugins``) and the headless UI's model layer (``ui``: undo stack,
+undoable signal and table edits, models) drive them.  Entry points run on the card unless the caller
 passes ``device="cpu"``, where every kernel's plain PyTorch version runs
 instead.  Imports neither JAX nor urh_tpu.
 

@@ -407,9 +407,14 @@ class Signal:
         self._qad = None
 
     def mute_range(self, start: int, end: int):
+        """Zero a sample range.  A cached qad gets the range zeroed; the
+        fused kernels' states, which no longer match the samples, are
+        dropped, so the next demodulation derives them from qad (urh_tpu's
+        CPU route; its TPU route keeps them: ROADMAP C11)."""
         self.iq_array[start:end] = 0.0
         if self._qad is not None:
             self._qad[start:end] = 0.0
+            self.__qad_states = None
 
     def insert_data(self, position: int, data: np.ndarray):
         self.iq_array.insert_subarray(position, data)
