@@ -215,6 +215,31 @@
    10,000 samples into the first pause (368, one of ones); after each undo
    the samples equal the original to the word and ``demodulate`` through K1
    gives the 367 messages.  Walls printed.
+17. The web app (``urh_tpu_torch.ui.web``), on the default device
+   (URH_TPU_TORCH_DEVICE unset), served in this process on 127.0.0.1:0 and
+   driven over HTTP with http.client as the page drives it, beside a second
+   ``WebUI(device="cpu")``, in a temporary config dir, on phase 3's 2^24-sample
+   float32 FSK capture written as .complex: ``/api/signal/open``, ``/params``
+   (FSK, 100 samples a symbol, center 0) and ``/messages``: all 367 messages
+   equal to the sent bits, K1 once; ``/spectrogram`` of samples 0-2^20 at
+   window 1,024 on both apps: PNGs of 2,047 x 1,024, colour indices within 1,
+   the dB image within 0.05 dB at or above -100 dB; ``/api/analysis/add`` and
+   ``/awre`` on both apps: the same message types and labels (before the
+   other signals open, so both analyze the same 367 messages); phase 6's
+   capture opened and ``/autodetect``: FSK at 100, B7 once a width bucket,
+   its 360 messages exact; ``/bandpass`` (the 51-tap band-pass) into a new
+   signal and its ``/messages``: all 367, K1 once; ``/edit`` muting the
+   first message and its pause, then ``/undo``: 366 messages (the first
+   zeros joined to the second), then 367 and the samples equal to the word;
+   ``/api/generator/add`` and ``/generate`` to a file: every sample equal to
+   ``Modulator.modulate``'s with the generator's modulator; ``/api/sniffer/
+   start`` over the Network SDR, the capture sent to its port over loopback,
+   ``/messages``, ``/stop``, ``/to_analysis``: all 367, one B6 float32
+   launch a drain; 4 rounds of phase 12's simulator profile through
+   ``/api/simulator/load``, ``/start``, ``/log`` and ``/stop``: every answer
+   sequence number + 1 with a valid CRC, "Finished".  Any reply but 200 fails
+   the phase with its error text; the servers and everything they started
+   are stopped in a finally.  Each route's wall and the phase's printed.
 
 Every failed check raises.  The last three lines are a JSON ``kernels``
 summary, the card's name and power limit, and ``{"ok": true, "device":
@@ -222,7 +247,8 @@ summary, the card's name and power limit, and ``{"ok": true, "device":
 stream's samples per second, the estimate() walls, the TX rate, the
 filter, spectrum, plot path and awre walls, the live loop's rates, the
 simulator's round walls, the RTL-TCP rate, the sharding walls, the
-placement verdicts and walls and the CLI's and the undo stack's walls.  Without
+placement verdicts and walls, the CLI's and the undo stack's walls and the web
+app's.  Without
 a CUDA card the script exits non-zero before it prints any result.
 """
 
@@ -3767,6 +3793,478 @@ def cli_and_ui_phase(device, identity: str, n: int = N_FULL,
     return out
 
 
+WEB_SPECTROGRAM = (0, 1 << 20, 1024)  # start, end, window of the spectrogram route
+WEB_SIM_ROUNDS = 4
+WEB_POLL_S = 0.05
+
+
+class WebApp:
+    """A port WebUI served on 127.0.0.1:0 in this process, driven over HTTP
+    with http.client as a browser's page drives it."""
+
+    def __init__(self, device, label: str):
+        import threading
+
+        from urh_tpu_torch.ui.web import WebUI, make_server
+
+        self.ui, self.label, self.walls = WebUI(device=device), label, {}
+        self.server = make_server(self.ui, host="127.0.0.1", port=0)
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    def call(self, method: str, path: str, body=None, key: str = None):
+        """The route's reply (JSON, or the PNG's bytes); any status but 200
+        fails the phase with the route's error text.  The wall of the
+        request is kept under ``key`` (default: the route, its signal id
+        left out)."""
+        import re
+        from http.client import HTTPConnection
+
+        conn = HTTPConnection("127.0.0.1", self.server.server_address[1],
+                              timeout=LIVE_DEADLINE_S)
+        t0 = time.perf_counter()
+        try:
+            conn.request(method, path, body=None if body is None else json.dumps(body),
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            data = resp.read()
+        finally:
+            conn.close()
+        self.walls[key or re.sub(r"/\d+/", "/", path.split("?")[0])] = time.perf_counter() - t0
+        reply = json.loads(data) if resp.getheader("Content-Type") == "application/json" else data
+        if resp.status != 200:
+            raise AssertionError(f"web {self.label}: {method} {path} answered {resp.status}: "
+                                 f"{reply}")
+        return reply
+
+    def close(self):
+        """Stop what the app started (its sniffer, simulator and devices),
+        then the server."""
+        for route in ("sniffer_stop", "simulator_stop", "device_send_stop",
+                      "device_spectrum_stop", "device_rfcat_stop", "device_record_stop"):
+            getattr(self.ui, route)(None, None)
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(LIVE_DEADLINE_S)
+
+
+def png_pixels(png: bytes) -> np.ndarray:
+    """(H, W, 4) BGRA of a PNG that urh_tpu_torch.ui.png wrote (one IDAT,
+    filter 0 on every row)."""
+    import struct
+    import zlib
+
+    w, h = struct.unpack(">II", png[16:24])
+    (length,) = struct.unpack(">I", png[33:37])
+    raw = np.frombuffer(zlib.decompress(png[41:41 + length]), np.uint8).reshape(h, 1 + 4 * w)
+    return raw[:, 1:].reshape(h, w, 4)[..., [2, 1, 0, 3]]
+
+
+def web_messages_step(app, path: str, bits, k1: int = None) -> dict:
+    """/api/signal/open, /params (FSK, 100 samples a symbol, center 0, the
+    noise and tolerance of demod_params), /messages: every message equal to
+    the sent bits, and K1 launched ``k1`` times by /params and /messages
+    when given (the noise threshold's change drops the cached qad).  -> K1's
+    launches there."""
+    p = demod_params("FSK", np.float32)
+    opened = app.call("POST", "/api/signal/open", {"path": path})
+    reset_launches()
+    params = app.call("POST", f"/api/signal/{opened['id']}/params", {
+        "modulation_type": "FSK", "samples_per_symbol": p.samples_per_symbol,
+        "center": p.center, "noise_threshold": p.noise_threshold, "tolerance": p.tolerance,
+        "pause_threshold": p.pause_threshold})
+    messages = app.call("GET", f"/api/signal/{opened['id']}/messages?view=0")["messages"]
+    launched = read_launches()["fsk_f32"]
+    print(f"web {app.label} messages: {opened['name']} of {opened['num_samples']} samples, "
+          f"{len(messages)} messages through /messages, K1 {launched}", flush=True)
+    if messages != bit_lines(bits):
+        raise AssertionError(f"web {app.label}: {len(messages)} messages through /messages, "
+                             f"sent {len(bits)}, not all equal")
+    if k1 is not None and launched != k1:
+        raise AssertionError(f"web {app.label}: K1 launched {launched} times by /params and "
+                             f"/messages, not {k1}")
+    return {"id": opened["id"], "params": params, "k1": launched}
+
+
+def web_spectrogram_step(app, cpu, path: str):
+    """/spectrogram over WEB_SPECTROGRAM on the card and on the CPU app: PNGs
+    of the expected size, colour indices within 1 on every cell, and the dB
+    image the route renders within DB_ATOL at or above DB_FLOOR (the same
+    non-finite cells)."""
+    import struct
+
+    from urh_tpu_torch.dsp.spectrogram import Spectrogram
+    from urh_tpu_torch.util import colormaps
+
+    samples = np.fromfile(path, np.complex64)
+    start, end, window = WEB_SPECTROGRAM
+    end = min(end, len(samples))
+    query = f"/api/signal/0/spectrogram?window={window}&start={start}&end={end}"
+    pngs = [a.call("GET", query) for a in (app, cpu)]
+    frames = (end - start - window) // (window // 2) + 1
+    sizes = [struct.unpack(">II", png[16:24]) for png in pngs]
+    table = {tuple(row): i for i, row in enumerate(colormaps.chosen_colormap_numpy_bgra)}
+    indices = [np.vectorize(lambda *px: table[px], otypes=[np.int64])(
+        *np.moveaxis(png_pixels(png), -1, 0)) for png in pngs]
+    db = [Spectrogram(samples, window_size=window, device=a.ui.device)
+          ._calculate_spectrogram(samples[start:end]) for a in (app, cpu)]
+    finite = np.isfinite(db[1])
+    above = finite & (db[1] >= DB_FLOOR)
+    db_err = float(np.abs(db[0] - db[1])[above].max())
+    index_err = int(np.abs(indices[0] - indices[1]).max())
+    print(f"web spectrogram: PNGs of {sizes[0]} (card) and {sizes[1]} (CPU), {len(pngs[0])} "
+          f"bytes; colour index diff {index_err}; dB diff {db_err} (limit {DB_ATOL}) on the "
+          f"{above.mean():.6%} of cells at or above {DB_FLOOR} dB", flush=True)
+    if sizes != [(frames, window)] * 2 or index_err > 1 or db_err > DB_ATOL or not np.array_equal(
+            np.isfinite(db[0]), finite):
+        raise AssertionError("web spectrogram: the card's image differs from the CPU's")
+
+
+def web_awre_step(app, cpu):
+    """/api/analysis/add and /api/analysis/awre of signal 0 on both apps: the
+    same message types and labels."""
+    found = []
+    for a in (app, cpu):
+        rows = a.call("POST", "/api/analysis/add", {"signal_id": 0})["rows"]
+        found.append((rows, a.call("POST", "/api/analysis/awre")["message_types"]))
+    print(f"web awre over {found[0][0]} rows: {len(found[0][1])} message types, labels "
+          f"{[[l['name'] for l in mt['labels']] for mt in found[0][1]]}; equal to the CPU "
+          f"app's {found[0] == found[1]}", flush=True)
+    if found[0] != found[1]:
+        raise AssertionError(f"web awre: card {found[0]}, CPU {found[1]}")
+
+
+def web_autodetect_step(app, path: str, iq: np.ndarray, bits) -> dict:
+    """/api/signal/open of phase 6's capture (its quiet lead), /autodetect:
+    FSK at 100 samples a bit with B7 once a width bucket; /messages at the
+    detected parameters: every message exact."""
+    signal_id = app.call("POST", "/api/signal/open", {"path": path},
+                         key="/api/signal/open (phase 6's capture)")["id"]
+    buckets = width_buckets(iq)
+    reset_launches()
+    found = app.call("POST", f"/api/signal/{signal_id}/autodetect")
+    counts = read_launches()
+    messages = app.call("GET", f"/api/signal/{signal_id}/messages?view=0",
+                        key="/api/signal/messages (autodetected)")["messages"]
+    params = found["params"]
+    print(f"web autodetect: {params}; B7 launches {counts['median_filter_f32']} for {buckets} "
+          f"width buckets, K1 {counts['fsk_f32']}; {len(messages)} messages", flush=True)
+    if not found["success"] or (params["modulation_type"], params["samples_per_symbol"]) != (
+            "FSK", 100.0) or counts["median_filter_f32"] != buckets:
+        raise AssertionError(f"web autodetect: {found}, launches {counts}")
+    if messages != bit_lines(bits):
+        raise AssertionError(f"web autodetect: {len(messages)} messages at the detected "
+                             f"parameters, sent {len(bits)}")
+    return {"b7": counts["median_filter_f32"], "k1": counts["fsk_f32"]}
+
+
+def web_bandpass_step(app, bits) -> dict:
+    """/bandpass of signal 0 around the FSK band into a new signal, then its
+    /messages: every message exact, K1 once."""
+    f_low, f_high, bw = BANDPASS
+    reset_launches()
+    new = app.call("POST", "/api/signal/0/bandpass", {"f_low": f_low, "f_high": f_high,
+                                                      "bw": bw})
+    messages = app.call("GET", f"/api/signal/{new['id']}/messages?view=0",
+                        key="/api/signal/messages (band-passed)")["messages"]
+    k1 = read_launches()["fsk_f32"]
+    print(f"web bandpass: {new['name']}, {len(messages)} messages, K1 {k1}", flush=True)
+    if messages != bit_lines(bits) or k1 != 1:
+        raise AssertionError(f"web bandpass: {len(messages)} messages, K1 launches {k1}")
+    return {"k1": k1}
+
+
+def web_edit_step(app, iq: np.ndarray, bits) -> dict:
+    """/edit muting the first message of signal 0 and its pause, then /undo
+    (ROADMAP C11): one message fewer, the first zeros up to the second; then
+    every message back and the samples equal to the capture's to the word."""
+    sent = bit_lines(bits)
+    first = app.ui.main.signal_frames[0].proto_analyzer.messages[0].bit_sample_pos
+    reset_launches()
+    app.call("POST", "/api/signal/0/edit", {"action": "mute", "start": int(first[0]),
+                                            "end": int(first[-1])})
+    muted = app.call("GET", "/api/signal/0/messages?view=0",
+                     key="/api/signal/messages (muted)")["messages"]
+    app.call("POST", "/api/signal/0/undo")
+    undone = app.call("GET", "/api/signal/0/messages?view=0",
+                      key="/api/signal/messages (undone)")["messages"]
+    k1 = read_launches()["fsk_f32"]
+    same = np.array_equal(app.ui.main.signal_frames[0].signal.iq_array.data, iq)
+    print(f"web edit: mute -> {len(muted)} messages, undo -> {len(undone)}, the samples "
+          f"equal to the word {same}, K1 {k1}", flush=True)
+    if len(muted) != len(sent) - 1 or muted[1:] != sent[2:] or not (
+            muted[0].endswith(sent[1]) and set(muted[0][:-len(sent[1])]) == {"0"}):
+        raise AssertionError(f"web edit: {len(muted)} messages after muting the first")
+    if undone != sent or not same:
+        raise AssertionError(f"web undo: {len(undone)} messages, samples equal {same}")
+    return {"k1": k1}
+
+
+def web_generator_step(app, folder: str, device, bits):
+    """/api/generator/add of signal 0, /api/generator/generate to a file:
+    every sample equal to Modulator.modulate's of its message with the
+    generator's modulator, as the page shows it, and the pauses zero."""
+    import urh_tpu_torch as ut
+
+    rows = app.call("POST", "/api/generator/add", {"signal_id": 0})["rows"]
+    path = os.path.join(folder, "generated.complex")
+    reply = app.call("POST", "/api/generator/generate", {"filename": path})
+    table = app.call("GET", "/api/generator/table")["rows"]
+    fields = app.call("GET", "/api/generator/modulators")["modulators"][0]
+    m = ut.Modulator(fields["name"])
+    for key in ("modulation_type", "carrier_freq_hz", "carrier_amplitude",
+                "carrier_phase_deg", "samples_per_symbol", "bits_per_symbol", "sample_rate",
+                "parameters", "gauss_bt", "gauss_filter_width"):
+        setattr(m, key, fields[key])
+    got = np.fromfile(path, np.float32).reshape(-1, 2)
+    t0, pos = time.perf_counter(), 0
+    for i, row in enumerate(table):
+        want = m.modulate(row["data"], pause=0, device=device).data
+        if not np.array_equal(got[pos:pos + len(want)], want) or got[
+                pos + len(want):pos + len(want) + row["pause"]].any():
+            raise AssertionError(f"web generate: message {i}'s samples differ from "
+                                 "Modulator.modulate's")
+        pos += len(want) + row["pause"]
+    modulate_wall = time.perf_counter() - t0
+    print(f"web generate: {rows} rows, {reply['samples']} samples written, each equal to "
+          f"Modulator.modulate's ({modulate_wall} s for {len(table)} calls), the pauses zero",
+          flush=True)
+    if pos != len(got) != reply["samples"] or [r["data"] for r in table] != bit_lines(bits):
+        raise AssertionError(f"web generate: {len(got)} samples, {pos} checked")
+
+
+def web_sniffer_step(app, iq: np.ndarray, bits) -> dict:
+    """/api/sniffer/start over the Network SDR, the capture sent to its port
+    over loopback with two pause gates of silence and, once those are
+    drained, one more; /api/sniffer/messages until every message is there,
+    /stop, /to_analysis: every message exact, one B6 float32 launch a
+    drain."""
+    from urh_tpu_torch.dsp import stream_kernels as sk
+    from urh_tpu_torch.protocol import stream
+
+    p = demod_params("FSK", np.float32)
+    for counts in (sk.LAUNCHES, stream.FALLBACKS, stream.HOST_ROUTE):
+        for key in counts:
+            counts[key] = 0
+    started = app.call("POST", "/api/sniffer/start", {
+        "device": NETWORK_SDR, "server_port": 0, "samples_per_symbol": p.samples_per_symbol,
+        "center": p.center, "noise": p.noise_threshold, "tolerance": p.tolerance,
+        "modulation_type": "FSK"})
+    sniffer, drains = app.ui._sniffer, []
+    ingest = sniffer._ingest
+
+    def counted_ingest(chunk):
+        drains.append(len(chunk))
+        ingest(chunk)
+
+    sniffer._ingest = counted_ingest
+    gate = np.zeros((stream.PAUSE_GATE_SYMBOLS * p.samples_per_symbol, 2), np.float32)
+    t0 = time.perf_counter()
+    send_raw(started["port"], iq)
+    send_raw(started["port"], np.concatenate([gate] * LIVE_SILENCE_GATES))
+    total = len(iq) + LIVE_SILENCE_GATES * len(gate)
+    wait_drained(sniffer, total, "web sniffer")
+    send_raw(started["port"], gate)
+    wait_drained(sniffer, total + len(gate), "web sniffer")
+    deadline = time.monotonic() + LIVE_DEADLINE_S
+    while True:
+        messages = app.call("GET", "/api/sniffer/messages?view=0")["messages"]
+        if len(messages) >= len(bits) or time.monotonic() > deadline:
+            break
+        time.sleep(WEB_POLL_S)
+    wall = time.perf_counter() - t0
+    stopped = app.call("POST", "/api/sniffer/stop", {})
+    rows = app.call("POST", "/api/sniffer/to_analysis", {})["rows"]
+    launches = sk.LAUNCHES["stream_block_f32"]
+    print(f"web sniffer: {len(messages)} messages equal to the sent bits "
+          f"{messages == bit_lines(bits)}, {stopped['messages']} at /stop, {rows} analysis "
+          f"rows after /to_analysis; {len(drains)} drains, urh_stream_block_f32 launches "
+          f"{launches}; {total + len(gate)} samples sent to every message back in {wall} s "
+          f"({(total + len(gate)) / wall} samples/s)", flush=True)
+    if messages != bit_lines(bits) or stopped["messages"] != len(bits):
+        raise AssertionError(f"web sniffer: {len(messages)} messages, sent {len(bits)}")
+    if launches != len(drains) or not launches or stream.FALLBACKS["states"] or any(
+            stream.HOST_ROUTE.values()):
+        raise AssertionError(f"web sniffer: launches {sk.LAUNCHES} for {len(drains)} drains, "
+                             f"fallbacks {stream.FALLBACKS}, host route {stream.HOST_ROUTE}")
+    return {"b6": launches, "drains": len(drains), "wall": wall}
+
+
+def web_simulator_step(app, folder: str, device, rounds: int = WEB_SIM_ROUNDS) -> dict:
+    """Phase 12's simulator profile (``rounds`` rounds), saved as a .sim.xml
+    and run through /api/project/settings, /api/generator/modulator,
+    /api/simulator/load, /start, /log and /stop, the SDRs Network SDRs over
+    loopback: every answer with sequence number + 1 and a valid CRC, "Finished"
+    in the log, one B6 float32 launch a drain."""
+    import socket
+    import xml.etree.ElementTree as ET
+
+    import urh_tpu_torch as ut
+    from urh_tpu_torch.dsp import stream_kernels as sk
+    from urh_tpu_torch.protocol import stream
+
+    rng = np.random.default_rng(31)
+    p = demod_params("FSK", np.float32)
+    bob, alice = (tx_modulator("FSK", 1, [-25e3, 25e3]) for _ in range(2))
+    for m in (bob, alice):
+        m.carrier_freq_hz, m.carrier_phase_deg = 0.0, 0
+    bob_data = "".join(map(str, rng.integers(0, 2, 200)))
+    _, config, _ = simulator_config(bob, bob_data, rounds)
+    path = os.path.join(folder, "profile.sim.xml")
+    ET.ElementTree(config.save_to_xml(standalone=True)).write(path)
+    app.call("POST", "/api/project/settings", {"simulator_num_repeat": rounds,
+                                                "simulator_timeout_ms": SIM_TIMEOUT_MS})
+    app.call("POST", "/api/generator/modulator", {
+        "action": "edit", "index": 0, "modulation_type": "FSK", "samples_per_symbol": 100,
+        "carrier_freq_hz": 0.0, "carrier_phase_deg": 0.0, "parameters": [-25e3, 25e3]})
+    items = app.call("POST", "/api/simulator/load", {"path": path})
+    if not items["valid"]:
+        raise AssertionError(f"web simulator: the loaded profile is not valid: {items}")
+    for counts in (sk.LAUNCHES, stream.FALLBACKS, stream.HOST_ROUTE):
+        for key in counts:
+            counts[key] = 0
+    gate = np.zeros((stream.PAUSE_GATE_SYMBOLS * p.samples_per_symbol, 2), np.float32)
+    answer_bytes = (256 * p.samples_per_symbol + SIM_PAUSE) * 8
+    sink = socket.create_server(("127.0.0.1", 0))
+    sink.settimeout(LIVE_DEADLINE_S)
+    conn = alice_tx = None
+    try:
+        started = app.call("POST", "/api/simulator/start", {
+            "samples_per_symbol": p.samples_per_symbol, "center": p.center,
+            "noise": p.noise_threshold, "tolerance": p.tolerance, "modulation_type": "FSK",
+            "rx_server_port": 0, "tx_client_port": sink.getsockname()[1]})
+        sim, drains = app.ui.main.simulator_tab_controller.simulator, []
+        ingest = sim.sniffer._ingest
+
+        def counted_ingest(chunk):
+            drains.append(len(chunk))
+            ingest(chunk)
+
+        sim.sniffer._ingest = counted_ingest
+        conn, _ = sink.accept()
+        conn.settimeout(LIVE_DEADLINE_S)
+        alice_tx = socket.create_connection(("127.0.0.1", started["rx_port"]))
+        sent, walls = 0, []
+        for r in range(rounds):
+            seq = int(rng.integers(0, 255))
+            body = format(seq, "08b") + "".join(map(str, rng.integers(0, 2, 200)))
+            iq = alice.modulate(SIM_PREAMBLE + SIM_SYNC + body + sim_checksum(body), pause=0,
+                                device=device).data
+            alice_tx.sendall(np.concatenate((iq, gate)).tobytes())
+            sent += len(iq) + len(gate)
+            wait_for(lambda: sim.sniffer.drain_position == sent, f"web simulator round {r}")
+            alice_tx.sendall(gate.tobytes())
+            sent += len(gate)
+            t_sent = time.perf_counter()
+            raw = recv_exactly(conn, answer_bytes)
+            walls.append(time.perf_counter() - t_sent)
+            got = [m.plain_bits_str for m in ut.demodulate(
+                np.frombuffer(raw, np.float32).reshape(-1, 2), p, device=device)]
+            want_head = SIM_PREAMBLE + SIM_SYNC + format(seq + 1, "08b") + bob_data
+            if len(got) != 1 or got[0][:240] != want_head or \
+                    got[0][240:] != sim_checksum(got[0][32:240]):
+                raise AssertionError(f"web simulator round {r}: Bob's answer {got} to "
+                                     f"sequence number {seq}")
+        alice_tx.close()
+        alice_tx = None
+        deadline = time.monotonic() + LIVE_DEADLINE_S
+        while True:
+            log = app.call("GET", "/api/simulator/log")
+            if not log["running"] or time.monotonic() > deadline:
+                break
+            time.sleep(WEB_POLL_S)
+        app.call("POST", "/api/simulator/stop", {})
+    finally:
+        for s in (alice_tx, conn, sink):
+            if s is not None:
+                s.close()
+    text = "\n".join(log["log"])
+    launches = sk.LAUNCHES["stream_block_f32"]
+    print(f"web simulator: {rounds} rounds, every answer sequence number + 1 with a valid CRC; "
+          f"round walls (s) {walls}; {len(drains)} drains, urh_stream_block_f32 launches "
+          f"{launches}; finished {'Stop simulation (Finished)' in text}", flush=True)
+    for fault in ("Receive timeout", "Mismatch", "not received", "Devices not ready"):
+        if fault in text:
+            raise AssertionError(f"web simulator: the log has {fault!r}:\n{text}")
+    if log["running"] or "Stop simulation (Finished)" not in text:
+        raise AssertionError(f"web simulator: the simulation did not finish:\n{text}")
+    if launches != len(drains) or not launches or stream.FALLBACKS["states"] or any(
+            stream.HOST_ROUTE.values()):
+        raise AssertionError(f"web simulator: launches {sk.LAUNCHES} for {len(drains)} drains")
+    return {"b6": launches, "walls": walls}
+
+
+def web_phase(device, identity: str, n: int = N_FULL, sim_rounds: int = WEB_SIM_ROUNDS) -> dict:
+    """The port's web app (urh_tpu_torch.ui.web) served in this process on
+    127.0.0.1:0 with ``WebUI(device=device)`` (None: the card, with
+    URH_TPU_TORCH_DEVICE unset) and driven over HTTP, in a temporary config
+    dir, beside a second ``WebUI(device="cpu")``, on phase 3's n-sample
+    float32 FSK capture written as .complex: open, params and messages (K1);
+    the spectrogram of its first 2^20 samples against the CPU app's; awre of
+    its messages against the CPU app's (before the other signals open, so
+    both apps analyze the same messages); autodetect of phase 6's capture
+    (B7); a band-pass into a new signal and its messages (K1); a mute and
+    its undo (C11); the generator's file against Modulator.modulate; the
+    sniffer over the Network SDR (B6 float32); ``sim_rounds`` rounds of phase
+    12's simulator profile.  Any reply but 200 fails the phase; the servers
+    and what they started are stopped in a finally.  -> walls and the
+    launches of K1, B7 and B6 float32 on the web routes."""
+    import tempfile
+
+    from urh_tpu_torch.cli import main as cli
+    from urh_tpu_torch.util import settings
+
+    folder = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    os.makedirs(folder, exist_ok=True)
+    saved_env = os.environ.get(cli.DEVICE_ENV)
+    saved_settings = (settings._config_dir, settings._settings_file, settings._store)
+    with tempfile.TemporaryDirectory(dir=folder) as home:
+        settings._config_dir = os.path.join(home, "urh_tpu")
+        settings._settings_file = os.path.join(settings._config_dir, "settings.json")
+        settings._store = None
+        if device is None:
+            os.environ.pop(cli.DEVICE_ENV, None)
+        apps = []
+        try:
+            t0 = time.perf_counter()
+            iq, bits = make_capture("FSK", n, 11)
+            capture = os.path.join(home, "capture.complex")
+            iq.tofile(capture)
+            quiet, quiet_bits = make_capture("FSK", n, 11, lead=quiet_lead(n))
+            quiet_path = os.path.join(home, "quiet.complex")
+            quiet.tofile(quiet_path)
+            app = WebApp(device, "card" if device is None else str(device))
+            apps.append(app)
+            cpu = WebApp("cpu", "CPU")
+            apps.append(cpu)
+            opened = web_messages_step(app, capture, bits, k1=1)
+            web_messages_step(cpu, capture, bits)
+            web_spectrogram_step(app, cpu, capture)
+            web_awre_step(app, cpu)
+            detected = web_autodetect_step(app, quiet_path, quiet, quiet_bits)
+            band = web_bandpass_step(app, bits)
+            edited = web_edit_step(app, iq, bits)
+            web_generator_step(app, home, device, bits)
+            sniffed = web_sniffer_step(app, iq, bits)
+            simulated = web_simulator_step(app, home, device, sim_rounds)
+            wall = time.perf_counter() - t0
+        finally:
+            for a in apps:
+                a.close()
+            settings._config_dir, settings._settings_file, settings._store = saved_settings
+            if saved_env is not None:
+                os.environ[cli.DEVICE_ENV] = saved_env
+    launches = {"fsk_f32": opened["k1"] + detected["k1"] + band["k1"] + edited["k1"],
+                "median_filter_f32": detected["b7"],
+                "stream_block_f32": sniffed["b6"] + simulated["b6"]}
+    print("web routes' walls (s): " + "; ".join(f"{k} {v}" for k, v in app.walls.items())
+          + f"; the CPU app's {cpu.walls}", flush=True)
+    print(f"web phase: {wall} s on {identity}; launches on the web routes {launches}",
+          flush=True)
+    return {"wall": wall, "walls": dict(app.walls), "launches": launches,
+            "sniffer_wall": sniffed["wall"], "sim_walls": simulated["walls"]}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
@@ -3821,6 +4319,11 @@ def main():
     elapsed("placement")
     cli_ui = cli_and_ui_phase(None, identity)  # None: the default device
     elapsed("the CLI and the UI's model layer")
+    served = web_phase(None, identity)  # None: the default device
+    elapsed("the web app")
+    idle = [k for k, v in served["launches"].items() if not v]
+    if idle:
+        raise AssertionError(f"web phase: {idle} never launched on the web routes")
 
     rows = []
     for key, k in KERNELS.items():
@@ -3836,7 +4339,8 @@ def main():
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
             "library_ms": None,
             **({"cli_launches": cli_ui["launches"]["fsk_f32"],
-                "undo_launches": cli_ui["undo_k1"]} if key == "fsk_f32" else {}),
+                "undo_launches": cli_ui["undo_k1"],
+                "web_launches": served["launches"]["fsk_f32"]} if key == "fsk_f32" else {}),
         })
     bound, bound_by = b5_bound_ms(B5_TIMED_N, clock)
     rows.append({
@@ -3855,7 +4359,8 @@ def main():
             "name": key, "route": "cuda", "source": B6_SOURCE, "replaces": B6_REPLACES,
             "launches": launches[key],
             **({"live_launches": live["fsk"]["launches"],
-                "simulator_launches": simulated["launches"]} if ingest == "f32"
+                "simulator_launches": simulated["launches"],
+                "web_launches": served["launches"]["stream_block_f32"]} if ingest == "f32"
                else {"live_launches": rtl["launches"],
                      "cli_launches": cli_ui["launches"]["stream_block_i8"]}),
             "max_abs_err": b6["err"][ingest],
@@ -3878,6 +4383,7 @@ def main():
         "large_bound_ms": large_bound, "outputs_a_thread": b7["variant"]["outputs"],
         "registers": b7["variant"]["registers"], "placement_launches": placed["b7_launches"],
         "cli_launches": cli_ui["launches"]["median_filter_f32"],
+        "web_launches": served["launches"]["median_filter_f32"],
     })
     bound, bound_by = b8_bound_ms(B8_TIMED_N, b8["cycles"], clock)
     rows.append({
@@ -3923,8 +4429,9 @@ def main():
         f"{cli_ui['estimate']} s (as its own process {cli_ui['estimate_child']} s), -tx "
         f"{cli_ui['tx']['rate']} samples/s, -rx over RTL-TCP {cli_ui['rx']['drains']} drains, "
         f"the child connected in {cli_ui['rx']['connect_s']} s; undo stack (do, undo, "
-        f"demodulate again, s) {cli_ui['undo']}; the phase {cli_ui['wall']} s on {identity}",
-        flush=True)
+        f"demodulate again, s) {cli_ui['undo']}; the phase {cli_ui['wall']} s; the web app "
+        f"{served['wall']} s (the sniffer's live wall {served['sniffer_wall']} s, simulator "
+        f"rounds {served['sim_walls']} s) on {identity}", flush=True)
     print(json.dumps({"kernels": rows}))
     print(identity)
     print(json.dumps({"ok": True, "device": {

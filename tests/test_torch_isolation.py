@@ -137,6 +137,26 @@ stack = UndoStack()
 stack.push(EditSignalAction(sig, EditAction.mute, start=0, end=1000))
 stack.undo()
 assert [m.plain_bits_str for m in ut.demodulate(sig)] == ["".join(map(str, bits))]
+import os
+from urh_tpu_torch.ui import dialogs
+from urh_tpu_torch.ui.controllers import MainController
+from urh_tpu_torch.ui.web import WebUI
+capture = os.path.join(sys.argv[1], "capture.complex")
+np.concatenate([tx, tx]).tofile(capture)
+web = WebUI(device="cpu")
+assert isinstance(web.main, MainController) and str(web.device) == "cpu"
+assert web.open_signal(None, {"path": capture})["id"] == 0
+web.signal_set_params(0, None, {"modulation_type": "FSK", "samples_per_symbol": 100,
+                                "center": 0.0, "noise_threshold": 0.1})
+assert web.signal_messages(0, {}, None)["messages"] == ["10110010" * 8] * 8
+assert web.signal_autodetect(0, None, None)["success"]
+png, kind = web.signal_spectrogram(0, {"window": ["256"]}, None)
+assert kind == "image/png" and png.startswith(b"\x89PNG")
+web.analysis_add(None, {"signal_id": 0})
+assert web.analysis_awre(None, None)["message_types"]
+web.generator_add(None, {"signal_id": 0})
+assert web.generator_generate(None, {})["samples"] > 0
+dialogs.SignalDetailsDialogController(web.main.signal_frames[0].signal)
 loaded = [m for m in sys.modules if m == "urh_tpu" or m.startswith("urh_tpu.")]
 assert not loaded, loaded
 print("ok")
@@ -150,8 +170,10 @@ def test_demodulates_with_jax_unimportable_and_loads_no_urh_tpu(tmp_path):
     child, in a process where JAX cannot be imported (and, for the child,
     neither JAX nor urh_tpu); then the simulator, the project manager and
     every hardware backend module import, an RTL-TCP VirtualDevice builds
-    its device, and the sharded pipeline (demod to bits, block-parallel
-    PSK) and a distributed FIR outside a process group run."""
+    its device, the sharded pipeline (demod to bits, block-parallel PSK)
+    and a distributed FIR outside a process group run, and the web app's
+    routes (open, params, messages, autodetect, spectrogram, awre, generate)
+    run their function-local imports."""
     for name in ("jax", "urh_tpu"):
         (tmp_path / name).mkdir()
         (tmp_path / name / "__init__.py").write_text(
@@ -174,7 +196,10 @@ def test_sources_import_neither_jax_nor_urh_tpu():
     offenders = []
     scanned = {os.path.relpath(path, ROOT) for path in _port_sources()}
     for name in ("cli/main.py", "cli/__main__.py", "plugins/rfcat.py", "plugins/insert_sine.py",
-                 "ui/actions.py", "ui/models.py", "ui/plots.py", "ui/widgets.py"):
+                 "ui/actions.py", "ui/models.py", "ui/plots.py", "ui/widgets.py", "ui/dialogs.py",
+                 "ui/web.py", "ui/controllers/__init__.py", "ui/controllers/compare_frame.py",
+                 "ui/controllers/generator_tab.py", "ui/controllers/main.py",
+                 "ui/controllers/signal_frame.py", "ui/controllers/simulator_tab.py"):
         assert os.path.join("urh_tpu_torch", name) in scanned
     for path in _port_sources():
         with open(path) as f:
@@ -305,6 +330,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     urh_logging.logger.setLevel(level)
     with pytest.raises(RuntimeError, match="CUDA"):
         EditSignalAction(Signal(), EditAction.mute, start=0, end=10)
+    # the controllers and the web app, its console script with no arguments
+    from urh_tpu_torch.ui import web
+    from urh_tpu_torch.ui.controllers import MainController
+
+    monkeypatch.setattr(sys, "argv", ["urh_tpu_torch-web"])
+    for call in (MainController, web.WebUI, web.main):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
     # an explicit device is honoured
     assert Signal.from_iq(iq, device="cpu").device == torch.device("cpu")
 
@@ -316,6 +349,28 @@ def test_the_cli_refuses_an_unknown_compute_device(monkeypatch, value):
     monkeypatch.setenv(cli.DEVICE_ENV, value)
     with pytest.raises(ValueError, match=cli.DEVICE_ENV):
         cli.main(["--estimate", "-file", os.path.join(ROOT, "pyproject.toml")])
+
+
+@pytest.mark.parametrize("value", ["gpu", "cuda:first", ""])
+def test_the_web_app_refuses_an_unknown_compute_device(monkeypatch, value):
+    from urh_tpu_torch.cli import main as cli
+    from urh_tpu_torch.ui import web
+
+    served = []
+    monkeypatch.setattr(web, "serve", lambda **kwargs: served.append(kwargs))
+    monkeypatch.delenv(cli.DEVICE_ENV, raising=False)
+    with pytest.raises(ValueError, match="--device"):
+        web.main(["--device", value])
+    if value:
+        monkeypatch.setenv(cli.DEVICE_ENV, value)
+        with pytest.raises(ValueError, match=cli.DEVICE_ENV):
+            web.main([])
+    assert not served
+    # a known value is what the server computes on, --device before the environment
+    monkeypatch.setenv(cli.DEVICE_ENV, "cuda:1")
+    web.main(["--device", "cpu", "--port", "0"])
+    web.main([])
+    assert [s["device"] for s in served] == ["cpu", "cuda:1"]
 
 
 def test_demodulate_rejects_a_device_other_than_the_signals():

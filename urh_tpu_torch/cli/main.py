@@ -39,16 +39,20 @@ PAUSE_SEP = "/"
 DEVICE_ENV = "URH_TPU_TORCH_DEVICE"
 
 
+def device_name(value: str, source: str) -> str:
+    """``value`` when it names cpu, cuda, cuda:N or auto; else a ValueError
+    that names ``source``, where the value came from."""
+    kind, _, index = value.partition(":")
+    if value in ("cpu", "cuda", "auto") or (kind == "cuda" and index.isdigit()):
+        return value
+    raise ValueError("{}={!r}: expected cpu, cuda, cuda:N or auto".format(source, value))
+
+
 def compute_device():
     """The torch device named by URH_TPU_TORCH_DEVICE: None (the card) when
     unset or empty; ValueError for anything but cpu, cuda, cuda:N, auto."""
     value = os.environ.get(DEVICE_ENV, "").strip()
-    if not value:
-        return None
-    kind, _, index = value.partition(":")
-    if value in ("cpu", "cuda", "auto") or (kind == "cuda" and index.isdigit()):
-        return value
-    raise ValueError("{}={!r}: expected cpu, cuda, cuda:N or auto".format(DEVICE_ENV, value))
+    return device_name(value, DEVICE_ENV) if value else None
 
 
 def cli_progress_bar(value, end_value, bar_length=20, title="Percent"):

@@ -462,15 +462,16 @@ class ProtocolAnalyzer:
                     message.message_type = message_type
                     break
 
-    def auto_assign_labels(self):
-        """Infer message types and labels with awre's FormatFinder, on the
-        signal's device when there is a signal (placed when it was made with
-        device="auto"), else on the default (the CUDA card)."""
+    def auto_assign_labels(self, device=None):
+        """Infer message types and labels with awre's FormatFinder, on
+        ``device`` when given, else on the signal's device when there is a
+        signal (placed when it was made with device="auto"), else on the
+        default (the CUDA card)."""
         from urh_tpu_torch.awre.format_finder import FormatFinder
 
-        format_finder = FormatFinder(
-            self.messages,
-            device=self.signal.requested_device if self.signal is not None else None)
+        if device is None and self.signal is not None:
+            device = self.signal.requested_device
+        format_finder = FormatFinder(self.messages, device=device)
         format_finder.run(max_iterations=10)
         self.message_types[:] = format_finder.message_types
         for msg_type, indices in format_finder.existing_message_types.items():
