@@ -13,12 +13,7 @@ A one-off measurement; nothing in the package depends on it.
    receiver thread, the poll thread that feeds the card and the sending
    thread share one interpreter lock, so the interval bounds how long a
    thread that wants the lock waits for it.
-3. A timeline of one live FSK receive: the time and size of every write
-   of the receiver into the receive buffer, the start and end of every
-   drain's feed, and the last message, on the host clock; printed as the
-   receive span and rate, the feeds' total, the gaps between feeds, and
-   the lag from the last sample received to the last message.
-4. The start-up of a ContinuousModulator-like child on the card, spawned
+3. The start-up of a ContinuousModulator-like child on the card, spawned
    as urh_tpu_torch spawns it: the wall to its entry, then ``import
    torch``, ``import urh_tpu_torch``, its CUDA context (a first tensor on
    the card), the first and the second ``Modulator.modulate`` of a
@@ -97,43 +92,6 @@ def loopback_alone(iq) -> float:
     return len(iq) / wall
 
 
-def live_timeline(iq, p) -> dict:
-    """One live FSK receive through chip_smoke.py's sniffer with every sink
-    write and every feed stamped; -> the timeline's summary (s)."""
-    import numpy as np
-
-    import chip_smoke
-    from urh_tpu_torch.protocol import stream
-
-    sniffer, port, record = chip_smoke.live_sniffer(None, p)
-    server, writes, feeds = sniffer.rcv_device.underlying_device.server, [], []
-    sink, ingest = server.sink, sniffer._ingest
-
-    def stamped_sink(frames):
-        sink(frames)
-        writes.append((time.perf_counter(), len(frames)))
-
-    def stamped_ingest(chunk):
-        t0 = time.perf_counter()
-        ingest(chunk)
-        feeds.append((t0, time.perf_counter(), len(chunk)))
-
-    server.sink, sniffer._ingest = stamped_sink, stamped_ingest
-    silence = np.zeros((2 * stream.PAUSE_GATE_SYMBOLS * p.samples_per_symbol, 2), np.float32)
-    chip_smoke.send_raw(port, iq)
-    chip_smoke.send_raw(port, silence)
-    chip_smoke.drain_and_stop(sniffer, len(iq) + len(silence), "live FSK timeline")
-    span = writes[-1][0] - writes[0][0]
-    gaps = [b[0] - a[1] for a, b in zip(feeds, feeds[1:])]
-    return {"writes": len(writes), "receive span": span,
-            "receive rate": sum(n for _, n in writes) / span,
-            "feeds": len(feeds), "feeds total": sum(b - a for a, b, _ in feeds),
-            "first feed after first write": feeds[0][0] - writes[0][0],
-            "gaps between feeds: median": float(np.median(gaps)), "max": max(gaps),
-            "last message after last write": record["messages"][-1] - writes[-1][0],
-            "feed ends": [round(b - writes[0][0], 4) for _, b, _ in feeds]}
-
-
 def main():
     import numpy as np
     import torch
@@ -167,10 +125,6 @@ def main():
               f"{float(np.median(drains))}), sniffer.demodulate "
               f"{rx['report']['samples_per_second']} samples/s over {rx['report']['seconds']} s "
               f"on {identity}", flush=True)
-
-    for run in (1, 2):
-        print(f"live FSK timeline, run {run} (s): {live_timeline(iq, p)} on {identity}",
-              flush=True)
 
     ctx = multiprocessing.get_context("spawn")
     for run in (1, 2):

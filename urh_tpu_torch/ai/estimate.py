@@ -21,6 +21,10 @@ default:
 * the final vote over the per-message results is a small host reduction.
 
 It returns ``{modulation_type, bit_length, center, tolerance, noise}``.
+Each stage runs in a :mod:`urh_tpu_torch.util.metrics` span, in this
+order: ``estimate.noise`` (magnitudes and noise floor), ``estimate.segment``,
+``estimate.stage``, ``estimate.classify`` (with the OOK merge),
+``estimate.rect`` and ``estimate.scan`` (with the vote).
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from urh_tpu_torch.ai.segmentation import (
 from urh_tpu_torch.core.iq import IQData
 from urh_tpu_torch.dsp import demod as _demod
 from urh_tpu_torch.util import placement
+from urh_tpu_torch.util.metrics import metrics
 
 # classification thresholds (AutoInterpretation.py:151-207)
 _OOK_MAX_ZEROS = 3  # more gated-out samples than this means on/off keying
@@ -322,62 +327,68 @@ def estimate(iq_array, noise: float = None, modulation: str = None, device=None)
     if isinstance(iq_array, np.ndarray):
         iq_array = IQData(iq_array)
 
-    magnitudes = iq_array.magnitudes
-    if noise is None:
-        noise = detect_noise_level(magnitudes)
+    with metrics.span("estimate.noise"):
+        magnitudes = iq_array.magnitudes
+        if noise is None:
+            noise = detect_noise_level(magnitudes)
 
-    segments = segment_messages_from_magnitudes(magnitudes, noise_threshold=noise)
+    with metrics.span("estimate.segment"):
+        segments = segment_messages_from_magnitudes(magnitudes, noise_threshold=noise)
 
     # the capture goes to the device once: classification and demodulation
     # both read it from there.  Under "auto" only while moving it (8 B a
     # sample up, qad 4 B back) costs less than urh_tpu's host pipeline, 5 ns
     # a sample; unstaged, each stage is placed on its own.
     n_samples = len(iq_array)
-    staging, side = placement.choose(
-        "ai.estimate.staging", device,
-        lambda: ai_device.use_device(2 * n_samples)
-        and placement.device_io_cost_s(8 * n_samples, 4 * n_samples) < n_samples * 5e-9)
-    staged = iq_array.staged_planes(staging) if side != "host" else None
+    with metrics.span("estimate.stage"):
+        staging, side = placement.choose(
+            "ai.estimate.staging", device,
+            lambda: ai_device.use_device(2 * n_samples)
+            and placement.device_io_cost_s(8 * n_samples, 4 * n_samples) < n_samples * 5e-9)
+        staged = iq_array.staged_planes(staging) if side != "host" else None
 
-    if modulation is None:
-        modulation = detect_modulation_for_messages(iq_array, segments, staged=staged,
-                                                    device=device)
+    with metrics.span("estimate.classify"):
+        if modulation is None:
+            modulation = detect_modulation_for_messages(iq_array, segments, staged=staged,
+                                                        device=device)
+        if modulation == "OOK":
+            segments = merge_message_segments_for_ook(segments)
     if modulation is None:
         return None
-
-    if modulation == "OOK":
-        segments = merge_message_segments_for_ook(segments)
 
     demod_kind = "ASK" if modulation in ("OOK", "ASK") else modulation
     if demod_kind not in ("ASK", "FSK", "PSK"):
         raise ValueError("unsupported modulation")
-    rect = _demod.afp_demod(staged if staged is not None else iq_array.data, noise,
-                            demod_kind, 2, dtype=iq_array.data.dtype,
-                            device=device).cpu().numpy()
+    with metrics.span("estimate.rect"):
+        rect = _demod.afp_demod(staged if staged is not None else iq_array.data, noise,
+                                demod_kind, 2, dtype=iq_array.data.dtype,
+                                device=device).cpu().numpy()
 
-    centers, bit_lengths, tolerances = [], [], []
-    for start, end in segments:
-        center, bit_length, tolerance = _message_parameters(rect[start:end], device=device)
-        if tolerance is not None:
-            tolerances.append(tolerance)
-        if center is not None:
-            centers.append(center)
-            bit_lengths.append(bit_length)
+    with metrics.span("estimate.scan"):
+        centers, bit_lengths, tolerances = [], [], []
+        for start, end in segments:
+            center, bit_length, tolerance = _message_parameters(rect[start:end],
+                                                                device=device)
+            if tolerance is not None:
+                tolerances.append(tolerance)
+            if center is not None:
+                centers.append(center)
+                bit_lengths.append(bit_length)
 
-    if modulation in ("OOK", "ASK"):
-        # ASK center tends toward the minimum of found centers
-        center = min_without_outliers(np.array(centers), z=2)
-    else:
-        center = np.mean(centers) if centers else None
-    if center is None:
-        return None
+        if modulation in ("OOK", "ASK"):
+            # ASK center tends toward the minimum of found centers
+            center = min_without_outliers(np.array(centers), z=2)
+        else:
+            center = np.mean(centers) if centers else None
+        if center is None:
+            return None
 
-    bit_length = get_most_frequent_value(bit_lengths)
-    if bit_length is None:
-        return None
+        bit_length = get_most_frequent_value(bit_lengths)
+        if bit_length is None:
+            return None
 
-    tolerance = (int(np.percentile(tolerances, 50)) if tolerances
-                 else max(1, int(0.05 * bit_length)))
+        tolerance = (int(np.percentile(tolerances, 50)) if tolerances
+                     else max(1, int(0.05 * bit_length)))
 
     return {
         "modulation_type": "ASK" if modulation == "OOK" else modulation,

@@ -31,6 +31,7 @@ from urh_tpu_torch.core.iq import IQData
 from urh_tpu_torch.plugins.manager import SDRPlugin
 from urh_tpu_torch.util import settings
 from urh_tpu_torch.util.events import Event
+from urh_tpu_torch.util.metrics import metrics, now_ns
 from urh_tpu_torch.util.ringbuffer import RingBuffer
 
 RECV_CHUNK = 65536
@@ -88,20 +89,37 @@ def bytes_from_bits(bits: str) -> bytes:
 class SampleSink:
     """Writes decoded sample frames into the shared receive buffer,
     restarting from the top when a write would run past the end (the
-    reference's wrap rule for resumable receive buffers)."""
+    reference's wrap rule for resumable receive buffers).  Counts its
+    writes, samples and wraps (``ring.commits``, ``ring.samples``,
+    ``ring.wraps`` in :data:`~urh_tpu_torch.util.metrics.metrics`) and
+    stamps the first write after each :meth:`take`."""
 
     def __init__(self, buffer: IQData):
         self.buffer = buffer
         self.write_index = 0
+        self._first_commit_ns = None  # metrics.now_ns() of the first write since take()
+        self._lock = threading.Lock()
 
     def __call__(self, frames: np.ndarray):
         n = len(frames)
         if n == 0:
             return
-        if self.write_index + n >= len(self.buffer):
+        wrapped = self.write_index + n >= len(self.buffer)
+        if wrapped:
             self.write_index = 0
         self.buffer[self.write_index:self.write_index + n] = frames
-        self.write_index += n
+        with self._lock:
+            self.write_index += n
+            if self._first_commit_ns is None:
+                self._first_commit_ns = now_ns()
+        metrics.count({"ring.commits": 1, "ring.samples": n, "ring.wraps": int(wrapped)})
+
+    def take(self) -> tuple:
+        """-> (write index, when the first write since the previous take
+        committed, or None), read together."""
+        with self._lock:
+            first, self._first_commit_ns = self._first_commit_ns, None
+            return self.write_index, first
 
 
 class _ReceiveHandler(socketserver.BaseRequestHandler):
@@ -192,6 +210,11 @@ class NetworkSDRInterfacePlugin(SDRPlugin):
     def current_receive_index(self, value: int):
         if self._sample_sink:
             self._sample_sink.write_index = value
+
+    def take_receive_index(self) -> tuple:
+        """-> (current_receive_index, when the first write since the
+        previous call committed (``metrics.now_ns()``), or None)."""
+        return self._sample_sink.take() if self._sample_sink else (0, None)
 
     def free_data(self):
         if self.raw_mode:

@@ -279,6 +279,14 @@ class VirtualDevice:
         else:
             raise ValueError("unsupported backend")
 
+    def take_receive_index(self) -> tuple:
+        """-> (current_index, when the first write since the previous call
+        committed, on ``util.metrics.now_ns()``'s clock, or None where the
+        backend does not stamp its writes: all but the Network SDR's)."""
+        if self.backend == Backends.network and self.mode == Mode.receive:
+            return self._dev.take_receive_index()
+        return self.current_index, None
+
     @property
     def data(self):
         if self.backend == Backends.native:

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import os
 import time
+from collections import deque
 from datetime import datetime
 from threading import Thread
 
@@ -33,9 +34,12 @@ from urh_tpu_torch.protocol.analyzer import ProtocolAnalyzer
 from urh_tpu_torch.protocol.message import Message
 from urh_tpu_torch.protocol.stream import StreamDemodulator
 from urh_tpu_torch.util.events import Event
-from urh_tpu_torch.util.metrics import metrics
+from urh_tpu_torch.util.metrics import metrics, now_ns
 
 POLL_INTERVAL_S = 0.01
+# drains remembered for sniffer.emit_wait: a message is emitted within a
+# few drains of its last sample
+DRAINS_KEPT = 64
 # how long stop() waits for the poll thread to leave a feed in flight
 STOP_JOIN_S = 60.0
 
@@ -69,6 +73,11 @@ class ProtocolSniffer(ProtocolAnalyzer):
 
         self._stream = None
         self.drain_position = 0   # ring index up to which samples were fed
+        # the latest drains' (stream samples fed before and after, start
+        # ns), oldest first, and whether a drain is feeding: for
+        # sniffer.emit_wait
+        self._drains = deque(maxlen=DRAINS_KEPT)
+        self._draining = False
         self.adaptive_noise = False
         self.automatic_center = False
 
@@ -144,6 +153,7 @@ class ProtocolSniffer(ProtocolAnalyzer):
     def sniff(self):
         self.is_running = True
         self._stream = self._make_stream()
+        self._drains.clear()
         self.rcv_device.start()
         self.sniff_thread = Thread(target=self._poll_loop, daemon=True)
         self.sniff_thread.start()
@@ -160,17 +170,30 @@ class ProtocolSniffer(ProtocolAnalyzer):
 
     def _drain_ring(self, ring_pos: int) -> int:
         """Pull new samples out of the device's ring buffer and hand them
-        to the streaming demodulator."""
-        write_pos = self.rcv_device.current_index
+        to the streaming demodulator, as a ``sniffer.drain`` span, after a
+        ``sniffer.ring_wait`` span from the first write since the previous
+        drain to the drain's start."""
+        write_pos, first_commit = self.rcv_device.take_receive_index()
         if write_pos == ring_pos:
             return ring_pos
         ring = self.rcv_device.data
-        if ring_pos <= write_pos:
-            chunk = np.asarray(ring[ring_pos:write_pos])
-        else:
-            chunk = np.concatenate((np.asarray(ring[ring_pos:]),
-                                    np.asarray(ring[:write_pos])))
-        self._ingest(chunk)
+        n = write_pos - ring_pos if ring_pos <= write_pos else len(ring) - ring_pos + write_pos
+        with metrics.span("sniffer.drain", samples=n) as drain:
+            if first_commit is not None:
+                metrics.add("sniffer.ring_wait", first_commit, drain.start_ns)
+            if ring_pos <= write_pos:
+                chunk = np.asarray(ring[ring_pos:write_pos])
+            else:
+                chunk = np.concatenate((np.asarray(ring[ring_pos:]),
+                                        np.asarray(ring[:write_pos])))
+            # what _emit_segments times a message's sniffer.emit_wait from
+            fed = self._stream._fed
+            self._drains.append((fed, fed + len(chunk), drain.start_ns))
+            self._draining = True
+            try:
+                self._ingest(chunk)
+            finally:
+                self._draining = False
         return write_pos
 
     def _ingest(self, chunk: np.ndarray):
@@ -183,6 +206,9 @@ class ProtocolSniffer(ProtocolAnalyzer):
             self.signal.noise_threshold = self._stream.noise_threshold
 
     def _emit_segments(self, segments):
+        """Messages of the segments, each announced by ``message_sniffed``;
+        inside a drain, each also records a ``sniffer.emit_wait`` span from
+        the start of the drain that fed its last sample."""
         sps = self.signal.samples_per_symbol
         now = time.time()
         fed = self._stream._fed
@@ -197,7 +223,18 @@ class ProtocolSniffer(ProtocolAnalyzer):
                               message_type=self.default_message_type,
                               decoder=self.decoder, timestamp=stamp)
                 self.messages.append(msg)
+                emitted = now_ns()
                 self.message_sniffed.emit(len(self.messages) - 1)
+                if self._draining:
+                    # the message ends where its closing pause starts
+                    self._record_emit_wait(seg.start_sample + bit_sample_pos[i][len(bits)] - 1,
+                                           emitted)
+
+    def _record_emit_wait(self, last_sample: int, emitted: int):
+        for fed_before, fed_after, start in self._drains:
+            if fed_before <= last_sample < fed_after:
+                metrics.add("sniffer.emit_wait", start, emitted)
+                return
 
     def _drain_bit_messages(self):
         """Bit-mode network device: lines of bits arrive pre-demodulated."""
