@@ -106,8 +106,7 @@
    capture.  A ``ProtocolSniffer`` over the Network SDR in raw mode (port 0)
    receives the 2^24-sample float32 FSK capture and then silence of two
    pause gates from a Network SDR sender, and once those are fed one gate
-   more (a continuing stream's next drain, which releases the stream's
-   chunk in flight): all 367 messages bit-exact in
+   more (a continuing stream's next drain): all 367 messages bit-exact in
    order, one stream block launch a drain (``sniffer.demodulate``'s calls),
    no fallback, no host block; the drains' sizes, the wall from the first
    sample received to the last message and the rates printed.  The same
@@ -2002,10 +2001,8 @@ def send_raw(port: int, data: np.ndarray):
 
 def live_rx(device, iq: np.ndarray, p, label: str) -> dict:
     """Send iq, then LIVE_SILENCE_GATES pause gates of silence, to a sniffer
-    on ``device``, and once those are fed one gate more: the stream keeps
-    one chunk in flight, and a continuing stream's next drain releases it
-    (without that the last message waits for stop(), whose receive server
-    shuts down on a 0.5 s poll).  -> the sniffer's messages' bits, the
+    on ``device``, and once those are fed one gate more, as a continuing
+    stream sends.  -> the sniffer's messages' bits, the
     record of live_sniffer, the samples sent, the wall from the first
     sample received to the last message, the stream's kernel launches and
     sniffer.demodulate's report."""
@@ -2392,7 +2389,7 @@ def simulator_phase(device, identity: str, rounds: int = SIM_ROUNDS) -> dict:
     the card and decoded here by demodulate() on the card.  Each round Alice
     sends a message with a fresh random sequence number and data, then one
     pause gate of silence, and once that is fed one gate more (the
-    channel goes on; it releases the stream's chunk in flight); the round's
+    channel goes on); the round's
     wall runs from that last gate sent to Bob's answer read.  -> numbers
     for the summary."""
     import socket

@@ -281,7 +281,7 @@ def test_sniffer_over_rtl_tcp_equals_urh_tpu(monkeypatch):
         for name, (sniffer, fed) in sniffers.items():
             _wait(lambda: sniffer.rcv_device.current_index == total and sum(fed) == total,
                   f"{name}: {total} samples received and fed")
-            servers[name].send(silence[:GATE].tobytes())  # releases the chunk in flight
+            servers[name].send(silence[:GATE].tobytes())  # a continuing stream's next gate
             _wait(lambda: sum(fed) == total + GATE, f"{name}: the last gate fed")
         for sniffer, _ in sniffers.values():
             sniffer.stop()

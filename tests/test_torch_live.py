@@ -48,6 +48,7 @@ from urh_tpu_torch.protocol.container import ProtocolAnalyzerContainer
 from urh_tpu_torch.protocol.generator import GeneratorBackend
 from urh_tpu_torch.protocol.message import Message
 from urh_tpu_torch.protocol.sniffer import ProtocolSniffer
+from urh_tpu_torch.protocol.stream import PAUSE_GATE_SYMBOLS
 from urh_tpu_torch.util import metrics
 from urh_tpu_torch.util import settings
 from urh_tpu_torch.util.events import Event
@@ -160,6 +161,34 @@ def test_sniffer_ingest_equals_urh_tpu(receive_buffer, case, adaptive):
                                                         rel=1e-6)
     if case in ("fsk", "ask"):
         assert port._stream.backend == "device"
+
+
+@pytest.mark.parametrize("route", ["device", "host", "adaptive_noise"])
+def test_sniffer_emits_a_message_in_the_drain_that_fed_its_end(route):
+    """A telegram, then one pause gate of silence, then another: the message
+    leaves during the second ingest on every route.  On the device route the
+    sniffer settles each chunk's own bundle (one ``stream.settled`` an
+    ingest); the host route and adaptive noise consume at once and settle
+    nothing."""
+    args = SNIFF_CASES["fsk"][0]
+    port = ProtocolSniffer(*args, NETWORK_SDR, BackendHandler(), network_raw_mode=True,
+                           compute_device="cpu")
+    port.adaptive_noise = route == "adaptive_noise"
+    port._stream = port._make_stream()
+    if route == "host":
+        port._stream.backend = "host"
+    telegram = _fsk(1)[:-1200]  # without its closing pause
+    silence = np.zeros((PAUSE_GATE_SYMBOLS * args[0], 2), np.float32)
+    metrics.metrics.clear()
+    emitted = []
+    for chunk in (telegram, silence, silence):
+        port._ingest(chunk)
+        emitted.append(len(port.messages))
+    assert emitted == [0, 1, 1]
+    assert port.messages[0].plain_bits_str == "".join(map(str, BITS))
+    assert metrics.metrics.counters().get("stream.settled", 0) == (3 if route == "device"
+                                                                   else 0)
+    assert port._stream.flush() == []
 
 
 def _feed_through_ring(sniffer, x, chunk):

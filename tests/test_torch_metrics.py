@@ -202,8 +202,9 @@ def test_estimate_records_its_six_stages_once_in_order(kind, want):
 
 
 # the ring test: 8 FSK messages of 2,480 samples (64 bits at 20 samples a
-# bit, a 1,200-sample pause) written 3,000 at a time into a 12,000-sample
-# ring: the fourth write wraps, once
+# bit, a 1,200-sample pause; the last pause cut to 100 samples, under the
+# 200-sample gate, so only the flush closes the last message) written 3,000
+# at a time into a 12,000-sample ring: the fourth write wraps, once
 RING = 12000
 WRITE = 3000
 
@@ -212,7 +213,7 @@ def test_sniffer_records_drains_waits_and_ring_counters(monkeypatch):
     monkeypatch.setattr(settings, "OVERWRITE_RECEIVE_BUFFER_SIZE", RING)
     bits = np.resize(np.array([1, 0, 1, 1, 0, 0, 1, 0], np.uint8), 64)
     one = modulate(bits, 20, "fsk", [-20e3, 20e3], sample_rate=1e6, pause=1200, device="cpu")
-    x = np.tile(one, (8, 1))
+    x = np.tile(one, (8, 1))[:-1100]
     x = (x + np.random.default_rng(0).normal(0, 0.002, x.shape)).astype(np.float32)
     sniffer = ProtocolSniffer(20, 0.0, 0.1, 1e-2, 3, "FSK", 1, "Network SDR", BackendHandler(),
                               network_raw_mode=True, compute_device="cpu")
@@ -240,12 +241,14 @@ def test_sniffer_records_drains_waits_and_ring_counters(monkeypatch):
     assert len(emit_wait) == in_drains  # stop()'s flush is not counted
     starts = {s.start_ns for s in drain}
     assert all(s.start_ns in starts and s.end_ns > s.start_ns for s in emit_wait)
-    # a message waits at least for the drain after the one that fed its end
-    assert all(s.end_ns > min(d.end_ns for d in drain if d.start_ns == s.start_ns)
+    # a message leaves inside the drain that fed its end
+    assert all(s.end_ns <= min(d.end_ns for d in drain if d.start_ns == s.start_ns)
                for s in emit_wait)
     assert len(named("sniffer.demodulate")) == drains
     counters = metrics.metrics.counters()
-    assert counters == {"ring.commits": 7, "ring.samples": len(x), "ring.wraps": 1}
+    # each drain took the device route and settled its own chunk
+    assert counters == {"ring.commits": 7, "ring.samples": len(x), "ring.wraps": 1,
+                        "stream.settled": drains}
     # the drains fed the lap's stale tail besides every sample written
     stale = metrics.metrics.report()["sniffer.drain"]["samples"] - counters["ring.samples"]
     assert stale == RING - 9000

@@ -459,14 +459,10 @@ def test_simulation_flow_over_the_network_sdr(monkeypatch):
         bits = _alice_bits(PORT, 2, 0xcd)
         alice_tx.send_raw_data(mod.modulate(bits, pause=0, device="cpu"), 1)
         # a message ends after a pause gate (10 symbols) of silence, and the
-        # port's stream keeps one chunk in flight until a later drain brings
-        # more samples: a gate of silence, then one more, as a continuing
-        # channel sends
-        n = len(bits) * 100
-        for _ in range(2):
-            assert wait_for_condition(lambda: sniffer.drain_position >= n, 15.0, 0.01)
-            alice_tx.send_raw_data(IQData(None, np.float32, 1000), 1)
-            n += 1000
+        # sniffer emits it in the drain that fed the gate: one gate suffices
+        assert wait_for_condition(lambda: sniffer.drain_position >= len(bits) * 100,
+                                  15.0, 0.01)
+        alice_tx.send_raw_data(IQData(None, np.float32, 1000), 1)
         assert wait_for_condition(lambda: any("Sending message 2" in m
                                               for m in sim.log_messages), 15.0, 0.01)
         acceptor.join(5)

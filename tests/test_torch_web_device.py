@@ -234,13 +234,8 @@ def test_live_sniff_into_analysis(pair):
         port = ui._device_port(ui._sniffer.rcv_device)
         assert port > 0
         send_to_port(port, capture)
-        send_to_port(port, np.concatenate([gate, gate]))  # flushes the last message
-    # the port's stream keeps the chunk in flight until the next drain (as
-    # a live SDR's next samples release it): one gate more, once drained
-    total = len(capture) + 2 * len(gate)
-    assert wait_until(lambda: pair.ui._sniffer.drain_position >= total)
-    for ui in pair.uis.values():
-        send_to_port(ui._device_port(ui._sniffer.rcv_device), gate)
+        # closes the last message, which leaves in the drain that fed it
+        send_to_port(port, np.concatenate([gate, gate]))
 
     def sniffed():
         replies = pair.each("GET", "/api/sniffer/messages?view=0")

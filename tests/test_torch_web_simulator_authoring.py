@@ -226,12 +226,8 @@ def test_author_and_run_external_program_flow(pair, float32_tx, tmp_path):
             senders[pkg] = NetworkSDRInterfacePlugin(raw_mode=True, sending=True)
             senders[pkg].client_port = replies[pkg][1]["rx_port"]
             senders[pkg].send_raw_data(IQData(message, skip_conversion=True), 1)
+            # one gate of silence closes the message in the drain that fed it
             senders[pkg].send_raw_data(gate, 1)
-        # the port's stream keeps the chunk in flight until the next drain:
-        # one gate more once the sniffer has drained what was sent
-        assert wait_until(lambda: sim.sniffer.drain_position >= len(message) + len(gate))
-        for sender in senders.values():
-            sender.send_raw_data(gate, 1)
         answers = {}
         for pkg in PACKAGES:
             answers[pkg] = wait_until(lambda: [b for b in messages_of(sinks[pkg].samples(), LIVE_CENTER, 0.1)

@@ -20,7 +20,8 @@ the device trace's.
    upload belongs to the drain of the kernel after it and a readback to the
    drain of the kernel before it.  The profiler starts and stops between
    feeds (the drains wait for it meanwhile), so the trace holds whole feeds.
-   Also counted: the spans a drain records.
+   Also counted: the spans a drain records, and the tracer's counters a
+   drain (``stream.settled`` reads 1 where every drain settled its chunk).
 
 Prints one JSON line a part, each with the card's name and power limit; the
 trace goes to ``DIR/trace.json`` (default ``build/tracer_check``).  The last line is
@@ -143,13 +144,16 @@ def shared_clock(seconds: float, seed: int, out_dir: str) -> dict:
         gate = Gate(cell.sniffer, out_dir)
         cell.window(seconds, gate)
         spans = metrics.metrics.timeline()
+        counters = metrics.metrics.counters()
     finally:
         cell.close()
     counts = {}
     for s in spans:
         counts[s.name] = counts.get(s.name, 0) + 1
     out = judge(os.path.join(out_dir, metrics.TRACE_FILE), gate.feeds)
-    out["spans_a_drain"] = {k: v / counts.get("sniffer.drain", 1) for k, v in sorted(counts.items())}
+    drains = counts.get("sniffer.drain", 1)
+    out["spans_a_drain"] = {k: v / drains for k, v in sorted(counts.items())}
+    out["counters_a_drain"] = {k: v / drains for k, v in sorted(counters.items())}
     out["timeline_overwritten"] = metrics.metrics.overwritten
     return out
 

@@ -200,7 +200,10 @@ class ProtocolSniffer(ProtocolAnalyzer):
         if len(chunk) == 0:
             return
         with metrics.measure("sniffer.demodulate", len(chunk)):
+            # no next chunk is in hand: the chunk's own bundle is consumed
+            # now, so a message leaves in the drain that fed its end
             segments = self._stream.feed(chunk)
+            segments += self._stream.settle()
         self._emit_segments(segments)
         if self.adaptive_noise:
             self.signal.noise_threshold = self._stream.noise_threshold

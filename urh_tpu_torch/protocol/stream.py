@@ -19,6 +19,9 @@ until its bundle is read).  The pipeline is one chunk deep, as urh_tpu's: a chun
 goes up through a pinned staging buffer, its kernels and the bundle's
 non-blocking readback into a pinned buffer are queued, and the previous
 chunk's bundle is consumed after that, behind its readback's CUDA event.
+A caller with no next chunk in hand (the live sniffer, which sleeps between
+drains) calls :meth:`StreamDemodulator.settle` after ``feed`` to consume the
+chunk's own bundle at once.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from urh_tpu_torch.dsp.symbols import (PAUSE_STATE, _initial_state, _run_length_
                                        _symbol_states_device, get_center_thresholds,
                                        pulse_lens_from_runs, symbol_states)
 from urh_tpu_torch.native.build import get_library
+from urh_tpu_torch.util.metrics import metrics
 
 # Enough idle to consider a transmission finished (reference gate:
 # ProtocolSniffer.py:231 uses 10 * samples_per_symbol).
@@ -427,6 +431,16 @@ class StreamDemodulator:
         self._maybe_adapt_noise(r_states, r_lens, float(peak))
         self._carry.push(r_states, r_lens)
         return pre + self._finalize(self._carry.close_segments())
+
+    def settle(self) -> list:
+        """Consume the bundle that ``feed`` left in flight and return the
+        segments it closes, counting it as ``stream.settled``; [] when none
+        is in flight (the host route, PSK, automatic center, adaptive
+        noise, nothing fed)."""
+        if self._pending is None:
+            return []
+        metrics.count("stream.settled")
+        return self._drain_pending()
 
     def _drain_pending(self) -> list:
         done, self._pending = self._pending, None

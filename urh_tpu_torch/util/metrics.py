@@ -28,7 +28,7 @@ Spans and counters of the port: ``estimate.noise``, ``estimate.segment``,
 order); ``sniffer.drain``, ``sniffer.ring_wait``, ``sniffer.emit_wait`` and
 ``sniffer.demodulate`` (``protocol/sniffer.py``); the counters
 ``ring.commits``, ``ring.samples`` and ``ring.wraps`` (the Network SDR's
-``SampleSink``).
+``SampleSink``) and ``stream.settled`` (``StreamDemodulator.settle``).
 """
 
 from __future__ import annotations
