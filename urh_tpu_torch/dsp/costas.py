@@ -29,6 +29,7 @@ import torch
 
 from urh_tpu_torch import _build
 from urh_tpu_torch.dsp.demod import NOISE_FSK_PSK, scalar_f32
+from urh_tpu_torch.util.metrics import metrics
 
 _COSTAS_INIT_PHASE = 1.5  # signal_functions.pyx:261
 DAMPING = math.sqrt(2.0) / 2.0  # signal_functions.pyx:349 (afp_demod)
@@ -142,15 +143,22 @@ def costa_demod_scan(x: torch.Tensor, noise_sqrd: float, scale: float, shift: fl
     ``carry`` is the (phase, freq) float32 tensor on x's device; it is
     read at the start and overwritten with the final carry, so a stream's
     blocks chain by passing the same tensor.  ``loop_order`` 2 runs the
-    2nd-order detector, every order above 2 the 4th-order one."""
+    2nd-order detector, every order above 2 the 4th-order one.  Each pass
+    over samples (the kernel's launch, or the plain loop on the CPU) is a
+    ``demod.costas`` span (args: the samples and the loop order) and adds
+    its samples to the counter ``costas.samples``."""
     alpha, beta = costas_alpha_beta(bandwidth)
-    if not _check(x, carry):
-        qad, phase, freq = costa_demod_scan_plain(x, noise_sqrd, scale, shift, loop_order,
-                                                  alpha, beta, carry[0], carry[1])
-        carry[0], carry[1] = phase, freq
-        return qad
-    qad = torch.empty(len(x), dtype=torch.float32, device=x.device)
-    if len(x):
+    on_card = _check(x, carry)
+    if not len(x):
+        return torch.empty(0, dtype=torch.float32, device=x.device)
+    with metrics.span("demod.costas", samples=len(x), loop_order=int(loop_order)):
+        metrics.count("costas.samples", len(x))
+        if not on_card:
+            qad, phase, freq = costa_demod_scan_plain(x, noise_sqrd, scale, shift, loop_order,
+                                                      alpha, beta, carry[0], carry[1])
+            carry[0], carry[1] = phase, freq
+            return qad
+        qad = torch.empty(len(x), dtype=torch.float32, device=x.device)
         _launch("urh_costas_f32", x, x.data_ptr(), len(x), noise_sqrd, scale, shift,
                 int(loop_order != 2), alpha, beta, carry.data_ptr(), qad.data_ptr())
         LAUNCHES["costas_f32"] += 1

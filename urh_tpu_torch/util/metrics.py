@@ -25,8 +25,10 @@ thread row.
 Spans and counters of the port: ``estimate.noise``, ``estimate.segment``,
 ``estimate.stage``, ``estimate.classify``, ``estimate.rect`` and
 ``estimate.scan`` (``ai/estimate.py``, one each an estimate, in that
-order); ``sniffer.drain``, ``sniffer.ring_wait``, ``sniffer.emit_wait`` and
-``sniffer.demodulate`` (``protocol/sniffer.py``); the counters
+order); ``demod.costas`` (``dsp/costas.py``, one a pass of the Costas loop,
+B5's launch on the card); ``sniffer.drain``, ``sniffer.ring_wait``,
+``sniffer.emit_wait`` and ``sniffer.demodulate`` (``protocol/sniffer.py``);
+the counters ``costas.samples`` (the samples of each such pass),
 ``ring.commits``, ``ring.samples`` and ``ring.wraps`` (the Network SDR's
 ``SampleSink``) and ``stream.settled`` (``StreamDemodulator.settle``).
 """
