@@ -69,7 +69,12 @@
    capture with 10 more silent samples ahead estimated as PSK at 100 with
    tolerance 0 (ROADMAP C1).  The same
    captures cut short give the same estimate and decisions on the card and
-   on the CPU.
+   on the CPU.  Each estimate runs each pass of the power gate once.  The
+   power gate's kernel against its plain version on the same CUDA tensors,
+   every ingest dtype at n = 0-4, 99, around its 4,096-sample tile, 20,011
+   and 409,617, at three gate levels; at 2^24 samples (float32, int8) its
+   noise level and segments equal the host path's; each pass timed there
+   beside its bound and its plain version.
 7. TX: ``Modulator.modulate`` for ASK, FSK, GFSK, PSK and OQPSK, 1 and 2
    bits a symbol, float32/int8/int16, at a 2^21-sample body, on the card
    against the CPU (float32 within 4 ulps of the amplitude, integers
@@ -1372,22 +1377,24 @@ def estimate_captures(n: int, psk: dict, est_msgs: int = EST_MSGS, est_bits: int
 
 def reset_launches():
     from urh_tpu_torch.ai import median_kernels as mk
+    from urh_tpu_torch.ai import power_gate as pg
     from urh_tpu_torch.dsp import costas
     from urh_tpu_torch.dsp import fused_kernels as fk
     from urh_tpu_torch.dsp import iir_kernels as ik
 
-    for counts in (mk.LAUNCHES, fk.LAUNCHES, costas.LAUNCHES, ik.LAUNCHES):
+    for counts in (mk.LAUNCHES, fk.LAUNCHES, costas.LAUNCHES, ik.LAUNCHES, pg.LAUNCHES):
         for key in counts:
             counts[key] = 0
 
 
 def read_launches() -> dict:
     from urh_tpu_torch.ai import median_kernels as mk
+    from urh_tpu_torch.ai import power_gate as pg
     from urh_tpu_torch.dsp import costas
     from urh_tpu_torch.dsp import fused_kernels as fk
     from urh_tpu_torch.dsp import iir_kernels as ik
 
-    return {**mk.LAUNCHES, **fk.LAUNCHES, **costas.LAUNCHES, **ik.LAUNCHES}
+    return {**mk.LAUNCHES, **fk.LAUNCHES, **costas.LAUNCHES, **ik.LAUNCHES, **pg.LAUNCHES}
 
 
 def width_buckets(iq: np.ndarray) -> int:
@@ -1420,7 +1427,7 @@ def estimate_phase(device, n: int = N_FULL, psk_n: int = B5_TIMED_N,
     the exact messages counted for the others.  -> B7 launches and walls."""
     import urh_tpu_torch as ut
 
-    launches, walls = 0, {}
+    launches, gate_launches, walls = 0, 0, {}
     for label, iq, bits, kind, key in estimate_captures(n, dict(n=psk_n, seed=13), est_msgs,
                                                         est_bits, device):
         buckets = width_buckets(iq)
@@ -1444,7 +1451,12 @@ def estimate_phase(device, n: int = N_FULL, psk_n: int = B5_TIMED_N,
         for what, c in (("estimate", counts), ("auto_detect", auto_counts)):
             if c["median_filter_f32"] != buckets or (kind == "PSK") != (c["costas_f32"] == 1):
                 raise AssertionError(f"{what} {label}: launches {c}, {buckets} width buckets")
+            if (c["power_gate_stats"], c["power_gate_crossings"]) != (1, 1):
+                raise AssertionError(f"{what} {label}: launches {c}, not one power gate pass "
+                                     "of each")
         launches += counts["median_filter_f32"] + auto_counts["median_filter_f32"]
+        gate_launches += (counts["power_gate_stats"] + counts["power_gate_crossings"]
+                          + auto_counts["power_gate_stats"] + auto_counts["power_gate_crossings"])
         reset_launches()
         messages = ut.demodulate(sig)
         if read_launches()[key] == 0:
@@ -1468,7 +1480,7 @@ def estimate_phase(device, n: int = N_FULL, psk_n: int = B5_TIMED_N,
                            shifted["tolerance"]) != ("PSK", 100, 0):
         raise AssertionError(f"estimate PSK with 10 more silent samples ahead: {shifted}, "
                              "not PSK at 100 with tolerance 0 (ROADMAP C1)")
-    return {"launches": launches, "walls": walls}
+    return {"launches": launches, "gate_launches": gate_launches, "walls": walls}
 
 
 def estimate_card_vs_cpu_phase(n: int = 200_000, psk_n: int = 20_000):
@@ -1498,6 +1510,131 @@ def estimate_card_vs_cpu_phase(n: int = 200_000, psk_n: int = 20_000):
                                  f"CPU {cpu} {decisions[1]}")
         print(f"estimate card vs CPU, {label} ({len(iq)} samples): {card}; "
               f"{len(segments)} decisions equal", flush=True)
+
+
+GATE_SOURCE = "urh_tpu_torch/csrc/power_gate.cu"
+GATE_REPLACES = ("none: urh_tpu/ai/segmentation.py detect_noise_level and "
+                 "segment_messages_from_magnitudes run on the host")
+GATE_SIZES = (0, 1, 2, 3, 4, 99, 4095, 4096, 4097, 8193, 20011, 409_617)
+
+
+def gate_capture(dtype, n: int, seed: int) -> np.ndarray:
+    """(n, 2) samples of dtype: kernel_inputs' noise (silent stretches
+    included) with a quiet lead of two 1% rows and tone bursts, one up to
+    the last sample."""
+    rng = np.random.default_rng(seed)
+    scale = 1.0 if dtype == np.float32 else (int(np.iinfo(dtype).max) + 1) / 2
+    x = rng.normal(0, 0.01 * scale, (n, 2))
+    x[:quiet_lead(n)] *= 0.1
+    for start, length in ((n // 7, n // 9), (n // 3, 7), (n // 2, n // 5), (n - n // 11, n)):
+        k = np.arange(len(x[start:start + length]))
+        x[start:start + length, 0] += 0.6 * scale * np.cos(0.01 * k)
+        x[start:start + length, 1] += 0.6 * scale * np.sin(0.01 * k)
+    if dtype != np.float32:
+        info = np.iinfo(dtype)
+        x = np.clip(np.rint(x), info.min, info.max)
+    return x.astype(dtype)
+
+
+def gate_same(got: tuple, want: tuple) -> bool:
+    """Two (values, values) results equal word for word (floats by their
+    bits, NaN payloads included)."""
+    ok = True
+    for a, b in zip(got, want):
+        if isinstance(a, torch.Tensor):
+            a, b = a.cpu(), b.cpu()
+            if a.dtype.is_floating_point:
+                view = torch.int64 if a.dtype == torch.float64 else torch.int32
+                a, b = a.view(view), b.view(view)
+            ok &= a.dtype == b.dtype and torch.equal(a, b)
+        else:
+            ok &= a == b
+    return bool(ok)
+
+
+def gate_phase(device, sizes=GATE_SIZES, full=N_FULL) -> dict:
+    """The power gate's two passes against their plain versions on the same
+    CUDA tensors: every ingest dtype at the sizes around its tiles, at three
+    gate levels; float32 and int8 at 2^24 samples, the statistics and the
+    crossings equal word for word, and the host's finish (noise_level,
+    segments) equal to the host path's (detect_noise_level and
+    segment_messages_from_magnitudes over IQData.magnitudes).  Each pass
+    timed at 2^24 (L2 flushed; the crossings' launch without the copy of
+    their count back) beside its bound and the plain version;
+    the gate's whole wall (both passes, their copies back and the host's
+    finish) beside the host path's."""
+    from urh_tpu_torch import IQData
+    from urh_tpu_torch.ai import power_gate as pg
+    from urh_tpu_torch.ai import segmentation as seg
+    from urh_tpu_torch.util.metrics import metrics
+
+    cases = 0
+    for dtype in (np.int8, np.uint8, np.int16, np.uint16, np.float32):
+        for n in sizes:
+            x = gate_capture(dtype, max(n, 1), seed=n)[:n].copy()
+            xt = torch.from_numpy(x).to(device)
+            mags = IQData(x).magnitudes
+            if n > 3:
+                skip, chunk = seg.noise_rows(n)
+                if not gate_same(pg.gate_stats(xt, skip, chunk),
+                                 pg.gate_stats_plain(xt, skip, chunk)):
+                    raise AssertionError(f"power gate stats {np.dtype(dtype).name} n={n}: "
+                                         "kernel and plain differ")
+            for noise in ((0.0, float(np.median(mags)), 1e30) if n else (0.1,)):
+                got = pg.gate_crossings(xt, noise)
+                want = pg.gate_crossings_plain(xt, noise)
+                torch.cuda.synchronize()  # a fault in the kernel shows here
+                if not gate_same(got, want):
+                    raise AssertionError(f"power gate crossings {np.dtype(dtype).name} n={n} "
+                                         f"noise {noise}: kernel and plain differ")
+                cases += 1
+    print(f"power gate: {cases} cases at n {sizes}, every dtype: kernel equal to plain",
+          flush=True)
+
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=device)
+    timings, walls, settled, crossed = {}, {}, {}, {}
+    for dtype in (np.float32, np.int8):
+        name = np.dtype(dtype).name
+        x = gate_capture(dtype, full, seed=24)
+        iq = IQData(x, skip_conversion=True)
+        t0 = time.perf_counter()
+        mags = iq.magnitudes
+        want_noise = seg.detect_noise_level(mags)
+        want_segments = seg.segment_messages_from_magnitudes(mags, want_noise)
+        host_wall = time.perf_counter() - t0
+        staged = iq.staged_planes(device)
+        skip, chunk = seg.noise_rows(full)
+        stats = pg.gate_stats(staged, skip, chunk)
+        crossings = pg.gate_crossings(staged, want_noise)
+        if not (gate_same(stats, pg.gate_stats_plain(staged, skip, chunk))
+                and gate_same(crossings, pg.gate_crossings_plain(staged, want_noise))):
+            raise AssertionError(f"power gate {name} at {full}: kernel and plain differ")
+        metrics.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        noise = pg.noise_level(staged, iq)
+        segments = pg.segments(staged, noise)
+        gate_wall = time.perf_counter() - t0
+        settled[name] = metrics.counters().get("gate.settled_rows", 0)
+        if noise != want_noise or segments != want_segments:
+            raise AssertionError(f"power gate {name} at {full}: noise {noise}, "
+                                 f"{len(segments)} segments; the host path {want_noise}, "
+                                 f"{len(want_segments)}")
+        timings[name] = {
+            "stats_ms": time_ms(lambda: pg.gate_stats(staged, skip, chunk), flush),
+            "crossings_ms": time_ms(lambda: pg.launch_crossings(staged, noise), flush),
+            "stats_plain_ms": time_ms(lambda: pg.gate_stats_plain(staged, skip, chunk), flush,
+                                      runs=5, warmup=1),
+            "crossings_plain_ms": time_ms(lambda: pg.gate_crossings_plain(staged, noise), flush,
+                                          runs=5, warmup=1),
+        }
+        walls[name] = (gate_wall, host_wall)
+        crossed[name] = len(crossings[0])
+        print(f"power gate {name} at {full}: noise {noise}, {len(segments)} segments, "
+              f"{len(crossings[0])} crossings, {settled[name]} rows settled, equal to the host "
+              f"path; {timings[name]}; the gate's wall {gate_wall} s, the host path's "
+              f"{host_wall} s", flush=True)
+    return {"timings": timings, "walls": walls, "settled": settled, "crossings": crossed}
 
 
 def tx_modulator(mt: str, bps: int, params):
@@ -4294,7 +4431,8 @@ def main():
     b7 = b7_phase("cuda")
     estimated = estimate_phase(None)  # None: the default device
     estimate_card_vs_cpu_phase()
-    elapsed("B7 and the estimation path")
+    gate = gate_phase("cuda")
+    elapsed("B7, the estimation path and the power gate")
     tx_rates = tx_phase(None)
     elapsed("TX")
     b8 = b8_phase("cuda")
@@ -4391,6 +4529,19 @@ def main():
         "plain_n": B8_PLAIN_N, "bound_ms": bound, "bound_by": bound_by,
         "chain_cycles": b8["cycles"], "library_ms": None,
     })
+    for name, ingest_bytes in (("float32", 8), ("int8", 2)):
+        t = gate["timings"][name]
+        rows.append({
+            "name": f"power_gate_{name}", "route": "cuda", "source": GATE_SOURCE,
+            "replaces": GATE_REPLACES, "launches": estimated["gate_launches"],
+            "mismatching_words": 0, "ms": t["stats_ms"] + t["crossings_ms"], **t,
+            "n": N_FULL, "plain_ms": t["stats_plain_ms"] + t["crossings_plain_ms"],
+            # each pass reads the capture; the crossings' positions are written
+            "bound_ms": (2 * ingest_bytes * N_FULL + 4 * gate["crossings"][name])
+            / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None, "wall_s": gate["walls"][name][0],
+            "host_wall_s": gate["walls"][name][1], "settled_rows": gate["settled"][name],
+        })
     main_c, wide_c = B9_MAIN_CS
     rows.append({
         "name": "costa_demod_scan_batch", "route": "cuda", "source": B5_SOURCE,

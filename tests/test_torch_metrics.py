@@ -1,7 +1,8 @@
 """The port's tracer (urh_tpu_torch.util.metrics) and the spans and counters
 the program records with it, on the CPU: the aggregates, the bounded
 timeline, the counters, spans of a second thread, the clock shared with a
-``torch.profiler`` trace, ``estimate()``'s six stages and the live sniffer's
+``torch.profiler`` trace, ``estimate()``'s six stages and its gate's
+counters, and the live sniffer's
 drains, ring waits, emit waits and ring counters."""
 
 import json
@@ -23,7 +24,7 @@ torch.set_num_threads(1)
 
 # how far a span's stamps may lie inside its record_function twin's edges
 TWIN_EDGE_US = 200.0
-STAGES = ["estimate.noise", "estimate.segment", "estimate.stage", "estimate.classify",
+STAGES = ["estimate.stage", "estimate.noise", "estimate.segment", "estimate.classify",
           "estimate.rect", "estimate.scan"]
 
 
@@ -199,6 +200,26 @@ def test_estimate_records_its_six_stages_once_in_order(kind, want):
     assert all(a.end_ns <= b.start_ns for a, b in zip(spans, spans[1:]))
     report = metrics.metrics.report()
     assert all(report[name]["calls"] == 1 for name in STAGES)
+
+
+def test_estimate_staged_on_the_cpu_counts_no_gate():
+    metrics.metrics.clear()
+    result = est.estimate(_capture("FSK", seed=3), device="cpu")
+    assert result["bit_length"] == 100
+    assert not any(k.startswith("gate.") for k in metrics.metrics.counters())
+
+
+@pytest.mark.parametrize("noise", [None, 0.05])
+def test_estimate_on_a_staged_capture_counts_one_gate(noise, monkeypatch):
+    # the gate's plain version stands in for the card's kernel
+    monkeypatch.setattr(est, "gates", lambda staged: staged is not None)
+    metrics.metrics.clear()
+    result = est.estimate(_capture("FSK", seed=3), noise=noise, device="cpu")
+    assert result["bit_length"] == 100
+    counts = metrics.metrics.counters()
+    assert counts["gate.card"] == 1
+    assert counts["gate.crossings"] > 0
+    assert counts.get("gate.settled_rows", 0) >= (1 if noise is None else 0)
 
 
 # the ring test: 8 FSK messages of 2,480 samples (64 bits at 20 samples a

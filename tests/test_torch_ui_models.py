@@ -812,8 +812,13 @@ def test_waveform_bitmap_equals_urh_tpu(n, width, height):
     assert png.encode_rgba(got) == jax_png.encode_rgba(got)
 
 
-def test_plots_write_files(tmp_path):
+def test_plots_write_files(tmp_path, monkeypatch):
     pytest.importorskip("matplotlib")
+    from urh_tpu_torch.util import colormaps
+
+    # plot_spectrogram chooses its colormap for the process: put it back after
+    for name in ("chosen_colormap_name", "chosen_colormap_numpy_bgra"):
+        monkeypatch.setattr(colormaps, name, getattr(colormaps, name))
     sig = ut.Signal.from_iq(_capture("FSK", 9), device="cpu")
     sig.params = ut.DemodParams(**PARAMS["FSK"])
     for show_qad in (False, True):

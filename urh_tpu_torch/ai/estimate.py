@@ -5,11 +5,15 @@ Behavioral contract: urh/ainterpretation/AutoInterpretation.py:151-471 of
 the reference.  ``estimate(iq, device=None)`` runs on the CUDA card by
 default:
 
-* noise floor and message segmentation: host NumPy, on the magnitudes;
 * the capture goes to the device once (``IQData.staged_planes``); under
   ``device="auto"`` only while urh_tpu's rule holds (2N cells from
   DEVICE_MIN_CELLS on, and 8 B a sample up and 4 back cost less than
   5 ns a sample), and otherwise each stage below is placed on its own;
+* noise floor and message segmentation: the power gate
+  (:mod:`urh_tpu_torch.ai.power_gate`) on a capture staged on the card,
+  two passes of a kernel whose chunk statistics and crossings the host
+  finishes to the host path's results, bit for bit; a capture unstaged or
+  staged on the CPU takes the host path (NumPy, on the magnitudes);
 * modulation classification gathers the sampled messages from there,
   bucket by bucket (:func:`urh_tpu_torch.ai.device.classification_stats_staged`,
   one B7 launch a bucket), and applies the variance and spectral
@@ -22,9 +26,11 @@ default:
 
 It returns ``{modulation_type, bit_length, center, tolerance, noise}``.
 Each stage runs in a :mod:`urh_tpu_torch.util.metrics` span, in this
-order: ``estimate.noise`` (magnitudes and noise floor), ``estimate.segment``,
-``estimate.stage``, ``estimate.classify`` (with the OOK merge),
-``estimate.rect`` and ``estimate.scan`` (with the vote).
+order: ``estimate.stage``, ``estimate.noise`` (noise floor: the gate's
+statistics pass, or the host's magnitudes and vote), ``estimate.segment``
+(the gate's crossings pass and the hysteresis), ``estimate.classify`` (with
+the OOK merge), ``estimate.rect`` and ``estimate.scan`` (with the vote); the
+counter ``gate.card`` counts the gates run on a capture staged on the card.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ import numpy as np
 
 from urh_tpu_torch.ai import device as ai_device
 from urh_tpu_torch.ai import kernels as _k
+from urh_tpu_torch.ai import power_gate
 from urh_tpu_torch.ai.segmentation import (
     detect_noise_level,
     max_without_outliers,
@@ -319,6 +326,29 @@ def _message_parameters(rect: np.ndarray, device=None) -> tuple:
 # ---------------------------------------------------------------------------
 
 
+def stage(iq_array: IQData, device):
+    """The capture's (n, 2) planes staged on ``device``, or None where
+    placement keeps it on the host.  The capture goes to the device once:
+    the power gate, classification and demodulation all read it from
+    there.  Under "auto" only while moving it (8 B a sample up, qad 4 B
+    back) costs less than urh_tpu's host pipeline, 5 ns a sample; unstaged,
+    the gate runs on the host and each stage of estimate() is placed on its
+    own."""
+    n_samples = len(iq_array)
+    staging, side = placement.choose(
+        "ai.estimate.staging", device,
+        lambda: ai_device.use_device(2 * n_samples)
+        and placement.device_io_cost_s(8 * n_samples, 4 * n_samples) < n_samples * 5e-9)
+    return iq_array.staged_planes(staging) if side != "host" else None
+
+
+def gates(staged) -> bool:
+    """Whether the power gate reads a staged capture: only on the card.  A
+    capture staged on the CPU takes the host path (one NumPy pass), which
+    the gate's plain version would only repeat in two float64 passes."""
+    return staged is not None and staged.device.type == "cuda"
+
+
 def estimate(iq_array, noise: float = None, modulation: str = None, device=None) -> dict:
     """Modulation type, bit length, center, tolerance and noise of a capture
     ((N, 2) numpy in an ingest dtype, or an IQData), on ``device`` (default:
@@ -327,25 +357,23 @@ def estimate(iq_array, noise: float = None, modulation: str = None, device=None)
     if isinstance(iq_array, np.ndarray):
         iq_array = IQData(iq_array)
 
-    with metrics.span("estimate.noise"):
-        magnitudes = iq_array.magnitudes
-        if noise is None:
-            noise = detect_noise_level(magnitudes)
-
-    with metrics.span("estimate.segment"):
-        segments = segment_messages_from_magnitudes(magnitudes, noise_threshold=noise)
-
-    # the capture goes to the device once: classification and demodulation
-    # both read it from there.  Under "auto" only while moving it (8 B a
-    # sample up, qad 4 B back) costs less than urh_tpu's host pipeline, 5 ns
-    # a sample; unstaged, each stage is placed on its own.
-    n_samples = len(iq_array)
     with metrics.span("estimate.stage"):
-        staging, side = placement.choose(
-            "ai.estimate.staging", device,
-            lambda: ai_device.use_device(2 * n_samples)
-            and placement.device_io_cost_s(8 * n_samples, 4 * n_samples) < n_samples * 5e-9)
-        staged = iq_array.staged_planes(staging) if side != "host" else None
+        staged = stage(iq_array, device)
+
+    if not gates(staged):
+        with metrics.span("estimate.noise"):
+            magnitudes = iq_array.magnitudes
+            if noise is None:
+                noise = detect_noise_level(magnitudes)
+        with metrics.span("estimate.segment"):
+            segments = segment_messages_from_magnitudes(magnitudes, noise_threshold=noise)
+    else:
+        metrics.count("gate.card")
+        with metrics.span("estimate.noise"):
+            if noise is None:
+                noise = power_gate.noise_level(staged, iq_array)
+        with metrics.span("estimate.segment"):
+            segments = power_gate.segments(staged, noise)
 
     with metrics.span("estimate.classify"):
         if modulation is None:

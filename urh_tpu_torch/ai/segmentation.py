@@ -34,6 +34,33 @@ def min_without_outliers(data: np.ndarray, z=2):
     return np.min(_drop_outliers(data, z)) if len(data) else None
 
 
+def noise_rows(n: int) -> tuple:
+    """(skip, chunk) of detect_noise_level's layout for n samples: the rows
+    are the trailing full 1%-chunks, after the first ``skip`` samples."""
+    chunk = max(1, n // 100)
+    return n % chunk, chunk
+
+
+def chunk_means(rows: np.ndarray) -> np.ndarray:
+    """The float32 mean of each row of a float32 (r, chunk) matrix."""
+    return rows.mean(axis=1, dtype=np.float32)
+
+
+def quiet_rows(means: np.ndarray):
+    """The rows that vote for the noise floor (mean within 10% of the
+    global minimum), or None where the chunk means lie close together."""
+    lo, hi = float(means.min()), float(means.max())
+    if hi == 0 or lo / hi > 0.9:
+        # chunk means are close together -> probably no noise present
+        return None
+    return means <= 1.1 * lo
+
+
+def noise_ceiling(loudest) -> float:
+    """The loudest sample of the voting rows, ceiled to 1e-4."""
+    return math.ceil(float(loudest) * 10000) / 10000
+
+
 def detect_noise_level(magnitudes: np.ndarray) -> float:
     """Noise floor from 1%-chunk means (semantics of
     AutoInterpretation.py:60-91), as one reshape instead of a chunk loop:
@@ -44,22 +71,19 @@ def detect_noise_level(magnitudes: np.ndarray) -> float:
     if n <= 3:
         return 0
 
-    chunk = max(1, n // 100)
-    rows = np.asarray(magnitudes[n % chunk:], dtype=np.float32)
+    skip, chunk = noise_rows(n)
+    rows = np.asarray(magnitudes[skip:], dtype=np.float32)
     rows = rows.reshape(-1, chunk)
     if rows.size == 0:
         return 0
 
-    means = rows.mean(axis=1, dtype=np.float32)
-    lo, hi = float(means.min()), float(means.max())
-    if hi == 0 or lo / hi > 0.9:
-        # chunk means are close together -> probably no noise present
+    voting = quiet_rows(chunk_means(rows))
+    if voting is None:
         return 0
-
-    quiet = rows[means <= 1.1 * lo]
+    quiet = rows[voting]
     if quiet.size == 0:
         return 0
-    return math.ceil(float(quiet.max()) * 10000) / 10000
+    return noise_ceiling(quiet.max())
 
 
 def segment_messages_from_magnitudes(magnitudes: np.ndarray, noise_threshold: float) -> list:
@@ -69,14 +93,25 @@ def segment_messages_from_magnitudes(magnitudes: np.ndarray, noise_threshold: fl
         return []
 
     above = np.asarray(magnitudes) > noise_threshold
-    state = 1 if above[0] else -1
-
-    # run-length encode the above/below sequence
     change = np.flatnonzero(above[1:] != above[:-1]) + 1
+    return segments_from_changes(change, bool(above[0]), n)
+
+
+def segments_from_changes(change: np.ndarray, above0: bool, n: int) -> list:
+    """[(start, end), ...] message ranges of an n-sample gate from its
+    crossings: ``change`` the ascending positions i in [1, n) where the
+    gate's ``magnitude > noise`` differs from sample i - 1's, ``above0``
+    sample 0's.  The hysteresis of segment_messages_from_magnitudes, which
+    the power gate on the device (:mod:`urh_tpu_torch.ai.power_gate`) also
+    finishes with."""
+    state = 1 if above0 else -1
+
+    # run-length encode the above/below sequence; each crossing flips it
+    change = np.asarray(change, dtype=np.int64)
     starts = np.concatenate(([0], change))
     ends = np.concatenate((change, [n]))
     lens = ends - starts
-    polarity = np.where(above[starts], 1, -1)
+    polarity = np.where(np.arange(len(starts)) % 2 == 0, state, -state)
 
     long_mask = lens >= OUTLIER_TOLERANCE
     l_pol = polarity[long_mask]

@@ -359,8 +359,17 @@ class Signal:
         return torch.zeros(2, dtype=torch.float32, device=self.device)
 
     def detect_noise_threshold(self) -> float:
+        """URH's noise floor of the capture: by the power gate where
+        estimate()'s staging rule puts the capture on the card (on the
+        signal's device, or placed under "auto"), else on the host (the
+        same level to the bit)."""
+        from urh_tpu_torch.ai import estimate as est
+        from urh_tpu_torch.ai import power_gate
         from urh_tpu_torch.ai.segmentation import detect_noise_level
 
+        staged = est.stage(self.iq_array, self.requested_device)
+        if est.gates(staged):
+            return power_gate.noise_level(staged, self.iq_array)
         return detect_noise_level(self.iq_array.magnitudes)
 
     def auto_detect(self, detect_modulation: bool = True, detect_noise: bool = False) -> bool:

@@ -22,10 +22,13 @@ trace and adds to it the spans of the threads the profiler does not see (a
 Python thread's ``record_function`` never reaches it), each on its own
 thread row.
 
-Spans and counters of the port: ``estimate.noise``, ``estimate.segment``,
-``estimate.stage``, ``estimate.classify``, ``estimate.rect`` and
+Spans and counters of the port: ``estimate.stage``, ``estimate.noise``,
+``estimate.segment``, ``estimate.classify``, ``estimate.rect`` and
 ``estimate.scan`` (``ai/estimate.py``, one each an estimate, in that
-order); ``demod.costas`` (``dsp/costas.py``, one a pass of the Costas loop,
+order), with the counters ``gate.card`` (``estimate()``: a power gate run on
+a capture staged on the card), ``gate.settled_rows`` and ``gate.crossings``
+(``ai/power_gate.py``: chunk means the host recomputed, crossing positions
+back from the device); ``demod.costas`` (``dsp/costas.py``, one a pass of the Costas loop,
 B5's launch on the card); ``sniffer.drain``, ``sniffer.ring_wait``,
 ``sniffer.emit_wait`` and ``sniffer.demodulate`` (``protocol/sniffer.py``);
 the counters ``costas.samples`` (the samples of each such pass),
