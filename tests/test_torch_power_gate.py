@@ -1,6 +1,6 @@
 """The power gate on the staged capture (urh_tpu_torch.ai.power_gate).
 
-On the CPU the gate runs its plain version, and the host finishes it: its
+On the CPU the gate's torch ops run, and the host finishes them: its
 noise level and segments must equal the host path's
 (``detect_noise_level`` and ``segment_messages_from_magnitudes`` over
 ``IQData.magnitudes``) to the bit, on every ingest dtype, at lengths that
@@ -16,23 +16,15 @@ its bound raises.  ``estimate()`` gates only a capture staged on the card
 and gives the host path's estimate either way; ``Signal``'s noise threshold
 follows estimate()'s staging rule.
 
-The header ``csrc/power_gate.cuh``, built with g++: its magnitudes equal
-the host's einsum to the bit, and the statistics kernel's loops, written
-out block by block and thread by thread in C, give the plain version's
-sums and maxes to the bit.
+The gate's magnitudes equal the host's einsum to the bit, its chunk sums
+lie within ``mean_bound`` of NumPy's float32 means, its maxes are NumPy's.
 
-On a CUDA card (marked ``card``; here they skip): the kernel's two passes
-against the plain version on the card and the host path, at 2^24 samples
-in float32 and int8 and at lengths around the kernel's tiles, in every
-dtype.  Run them on the card with
+On a CUDA card (marked ``card``; here they skip): the gate against the
+host path, at 2^24 samples in float32 and int8, on rows past float32 sums
+and through ``estimate()``.  Run them on the card with
 ``python -m pytest --noconftest -p no:cacheprovider -m card tests/test_torch_power_gate.py``
 (the repository's conftest loads JAX, which the card's machine lacks).
 """
-
-import ctypes
-import os
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -48,8 +40,6 @@ from urh_tpu_torch.util import metrics, placement
 
 torch.set_num_threads(1)
 
-CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "urh_tpu_torch", "csrc")
 DTYPES = [np.int8, np.uint8, np.int16, np.uint16, np.float32]
 BENCH = registry.benchmark()
 
@@ -96,7 +86,7 @@ def bursts(dtype, n: int, seed: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# the plain gate and the host's finish against the host path
+# the gate and the host's finish against the host path
 # ---------------------------------------------------------------------------
 
 
@@ -246,8 +236,8 @@ def test_a_mean_at_the_threshold_is_settled_and_agrees(ulps):
 
 def test_estimate_on_a_staged_capture_equals_the_host_path(monkeypatch):
     """Unstaged (placement's host side), staged on the CPU (the host path
-    too) and gated (the plain gate, as the card's path runs it): one
-    estimate."""
+    too) and gated (the gate's torch ops, as the card's path runs them):
+    one estimate."""
     x = cell_capture("wmbus_t1_hackrf_5msps")
     host = placement.choose
     with monkeypatch.context() as m:
@@ -299,117 +289,34 @@ def test_gate_rejects_what_the_kernel_does_not_take():
         pg.gate_crossings(torch.zeros((10, 2), dtype=torch.int8).t(), 0.1)
 
 
-def test_mean_bound_covers_numpy_float32_means():
+BURSTS = [(np.float32, 1000003), (np.int8, 250017), (np.uint8, 417), (np.int16, 56789),
+          (np.uint16, 4)]
+
+
+@pytest.mark.parametrize("case", ["lognormal", *BURSTS],
+                         ids=lambda c: c if isinstance(c, str)
+                         else f"{np.dtype(c[0]).name}-{c[1]}")
+def test_mean_bound_covers_numpy_float32_means(case):
     """The bound against NumPy's own float32 mean, on levels of many
-    magnitudes (the widest relative spread a real chunk has)."""
-    rng = np.random.default_rng(9)
-    for chunk in (1, 7, 128, 129, 1000, 40961, 167772):
-        levels = (rng.lognormal(0, 3, (4, chunk)) * 1e-3).astype(np.float32)
+    magnitudes (the widest relative spread a real chunk has) and on bursts
+    captures: the exact mean lies within half of it and the gate's float64
+    sum over chunk within it; the gate's maxes are NumPy's row maxes."""
+    for x, skip, chunk in level_rows(case):
+        rows = (len(x) - skip) // chunk
+        levels = np.asarray(IQData(x, skip_conversion=True).magnitudes[skip:skip + rows * chunk],
+                            np.float32).reshape(rows, chunk)
         exact = levels.astype(np.float64).sum(axis=1) / chunk
         host = seg.chunk_means(levels).astype(np.float64)
         assert (np.abs(host - exact) <= 0.5 * pg.mean_bound(chunk) * exact).all()
+        sums, maxes = (t.numpy() for t in pg.gate_stats(torch.from_numpy(x), skip, chunk))
+        assert (np.abs(host - sums / chunk) <= pg.mean_bound(chunk) * sums / chunk
+                + 2.0 ** -148).all()
+        assert np.array_equal(maxes.view(np.int32), levels.max(axis=1).view(np.int32))
 
 
 # ---------------------------------------------------------------------------
-# the header, built with g++
+# the gate's arithmetic against NumPy's
 # ---------------------------------------------------------------------------
-
-HARNESS = r"""
-#include <stdint.h>
-#include "power_gate.cuh"
-
-template <typename T>
-static void mags(const T* x, int64_t n, double* out) {
-    for (int64_t i = 0; i < n; ++i) out[i] = urh_gate_magnitude<T>(x[2 * i], x[2 * i + 1]);
-}
-
-// power_gate.cu's statistics kernel, block (s, r) by block and thread by
-// thread, each in the kernel's order
-template <typename T>
-static void stats(const T* x, int64_t skip, int64_t chunk, int64_t rows, double* sums,
-                  float* maxes) {
-    const int64_t stride = (int64_t)kUrhGateRowBlocks * kUrhGateThreads;
-    for (int64_t r = 0; r < rows; ++r) {
-        const T* row = x + 2 * (skip + r * chunk);
-        double block_sum[kUrhGateRowBlocks];
-        float block_max[kUrhGateRowBlocks];
-        for (int s = 0; s < kUrhGateRowBlocks; ++s) {
-            double v[kUrhGateThreads];
-            float m[kUrhGateThreads];
-            for (int t = 0; t < kUrhGateThreads; ++t) {
-                double acc = 0.0;
-                float best = 0.0f;
-                for (int64_t j = (int64_t)s * kUrhGateThreads + t; j < chunk; j += stride) {
-                    const float level = urh_gate_level(urh_gate_magnitude<T>(row[2 * j],
-                                                                             row[2 * j + 1]));
-                    acc = acc + (double)level;
-                    best = urh_gate_max(best, level);
-                }
-                v[t] = acc;
-                m[t] = best;
-            }
-            for (int h = kUrhGateThreads / 2; h > 0; h >>= 1)
-                for (int t = 0; t < h; ++t) {
-                    v[t] = v[t] + v[t + h];
-                    m[t] = urh_gate_max(m[t], m[t + h]);
-                }
-            block_sum[s] = v[0];
-            block_max[s] = m[0];
-        }
-        double total = 0.0;
-        float best = 0.0f;
-        for (int s = 0; s < kUrhGateRowBlocks; ++s) {
-            total = total + block_sum[s];
-            best = urh_gate_max(best, block_max[s]);
-        }
-        sums[r] = total;
-        maxes[r] = best;
-    }
-}
-
-#define BOTH(name, T)                                                                     \
-    extern "C" void h_mags_##name(const T* x, int64_t n, double* out) { mags(x, n, out); } \
-    extern "C" void h_stats_##name(const T* x, int64_t skip, int64_t chunk, int64_t rows,  \
-                                   double* sums, float* maxes) {                          \
-        stats(x, skip, chunk, rows, sums, maxes);                                          \
-    }
-BOTH(int8, int8_t)
-BOTH(uint8, uint8_t)
-BOTH(int16, int16_t)
-BOTH(uint16, uint16_t)
-BOTH(float32, float)
-
-extern "C" float h_max(float a, float b) { return urh_gate_max(a, b); }
-extern "C" int h_constants(int* out) {
-    out[0] = kUrhGateThreads;
-    out[1] = kUrhGateRowBlocks;
-    out[2] = kUrhGateThreads * kUrhGateTileIters;
-    return 0;
-}
-"""
-
-
-@pytest.fixture(scope="module")
-def header(tmp_path_factory):
-    if shutil.which("g++") is None:
-        pytest.skip("g++ is not installed")
-    out = tmp_path_factory.mktemp("power_gate")
-    src = out / "harness.cpp"
-    src.write_text(HARNESS)
-    lib_path = out / "libharness.so"
-    subprocess.run(["g++", "-x", "c++", "-D__host__=", "-D__device__=",
-                    "-ffp-contract=off", "-O2", "-shared", "-fPIC", "-I", CSRC,
-                    "-o", str(lib_path), str(src)], check=True, timeout=120)
-    lib = ctypes.CDLL(str(lib_path))
-    p, i64 = ctypes.c_void_p, ctypes.c_int64
-    for dtype in DTYPES:
-        name = np.dtype(dtype).name
-        getattr(lib, f"h_mags_{name}").argtypes = [p, i64, p]
-        getattr(lib, f"h_stats_{name}").argtypes = [p, i64, i64, i64, p, p]
-    lib.h_max.argtypes = [ctypes.c_float, ctypes.c_float]
-    lib.h_max.restype = ctypes.c_float
-    lib.h_constants.argtypes = [p]
-    return lib
 
 
 def edge_samples(dtype) -> np.ndarray:
@@ -433,42 +340,42 @@ def edge_samples(dtype) -> np.ndarray:
     return np.concatenate([grid, rand])
 
 
-def test_header_constants_match_the_module(header):
-    out = np.zeros(3, np.int32)
-    header.h_constants(out.ctypes.data)
-    assert out.tolist() == [pg.THREADS, pg.ROW_BLOCKS, pg.TILE]
+def level_rows(case) -> list:
+    """-> [(x, skip, chunk)]: 4 rows of lognormal levels (many magnitudes:
+    the widest relative spread a real chunk has) as (level, 0) float32
+    samples at chunks of 1 to 167,772, or a bursts capture in
+    detect_noise_level's layout."""
+    if case == "lognormal":
+        rng = np.random.default_rng(9)
+        out = []
+        for chunk in (1, 7, 128, 129, 1000, 40961, 167772):
+            levels = (rng.lognormal(0, 3, 4 * chunk) * 1e-3).astype(np.float32)
+            out.append((np.stack([levels, np.zeros_like(levels)], axis=1), 0, chunk))
+        return out
+    dtype, n = case
+    return [(bursts(dtype, n, seed=n), *seg.noise_rows(n))]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
-def test_header_magnitudes_equal_the_host_einsum(header, dtype):
+def test_magnitudes_equal_the_host_einsum(dtype):
     x = edge_samples(dtype)
-    out = np.empty(len(x))
-    getattr(header, f"h_mags_{np.dtype(dtype).name}")(x.ctypes.data, len(x), out.ctypes.data)
     want = IQData(x, skip_conversion=True).magnitudes
-    assert np.array_equal(out.view(np.int64), want.view(np.int64))
-    plain = pg._magnitudes(torch.from_numpy(x)).numpy()
-    assert np.array_equal(plain.view(np.int64), want.view(np.int64))
+    got = pg._magnitudes(torch.from_numpy(x)).numpy()
+    assert np.array_equal(got.view(np.int64), want.view(np.int64))
 
 
-@pytest.mark.parametrize("dtype,n", [(np.float32, 1000003), (np.int8, 250017), (np.uint8, 417),
-                                     (np.int16, 56789), (np.uint16, 4)],
-                         ids=lambda v: str(v) if isinstance(v, int) else np.dtype(v).name)
-def test_header_stats_loops_equal_the_plain_version(header, dtype, n):
-    x = bursts(dtype, n, seed=n)
-    skip, chunk = seg.noise_rows(n)
-    rows = (n - skip) // chunk
-    sums, maxes = np.empty(rows), np.empty(rows, np.float32)
-    getattr(header, f"h_stats_{np.dtype(dtype).name}")(
-        x.ctypes.data, skip, chunk, rows, sums.ctypes.data, maxes.ctypes.data)
-    want_sums, want_maxes = pg.gate_stats(torch.from_numpy(x), skip, chunk)
-    assert np.array_equal(sums.view(np.int64), want_sums.numpy().view(np.int64))
-    assert np.array_equal(maxes.view(np.int32), want_maxes.numpy().view(np.int32))
-
-
-def test_header_max_keeps_nan_as_numpy_does(header):
-    nan = float("nan")
-    assert np.isnan(header.h_max(1.0, nan)) and np.isnan(header.h_max(nan, 1.0))
-    assert header.h_max(0.0, 2.0) == 2.0 and header.h_max(2.0, 0.5) == 2.0
+def test_a_nan_level_gives_its_row_a_nan_max():
+    """A NaN level inside a burst, louder levels after it: its row's max
+    (and sum) is NaN, as np.max gives, and the other rows' maxes are
+    NumPy's."""
+    x = bursts(np.float32, 5037, seed=7)
+    x[37 + 50 * 60 + 3, 1] = np.nan
+    skip, chunk = seg.noise_rows(len(x))
+    levels = np.asarray(IQData(x, skip_conversion=True).magnitudes[skip:],
+                        np.float32).reshape(-1, chunk)
+    sums, maxes = (t.numpy() for t in pg.gate_stats(torch.from_numpy(x), skip, chunk))
+    assert np.isnan(maxes[60]) and np.isnan(sums[60])
+    assert np.array_equal(maxes, levels.max(axis=1), equal_nan=True)
 
 
 # ---------------------------------------------------------------------------
@@ -483,72 +390,47 @@ def card():
     return torch.device("cuda")
 
 
-def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
-    view = {torch.float64: torch.int64, torch.float32: torch.int32}.get(a.dtype, a.dtype)
-    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
-
-
-def kernel_matches_plain(x: torch.Tensor, noise: float):
-    n = len(x)
-    if n > 3:
-        skip, chunk = seg.noise_rows(n)
-        got = pg.gate_stats(x, skip, chunk)
-        want = pg.gate_stats_plain(x, skip, chunk)
-        assert same_bits(got[0], want[0]) and same_bits(got[1], want[1])
-    got = pg.gate_crossings(x, noise)
-    want = pg.gate_crossings_plain(x, noise)
-    assert torch.equal(got[0].cpu(), want[0].cpu()) and got[1] == want[1]
-
-
-@pytest.mark.card
-@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
-def test_card_kernel_equals_plain_around_its_tiles(card, dtype):
-    for n in (0, 1, 2, 3, 4, 99, 4095, 4096, 4097, 8193, 20011, 409_617):
-        x = bursts(dtype, max(n, 1), seed=n)[:n].copy()
-        mags = IQData(x).magnitudes if n else np.zeros(0)
-        for noise in ((0.0, float(np.median(mags)), 1e30) if n else (0.1,)):
-            kernel_matches_plain(torch.from_numpy(x).to(card), noise)
-        if n:
-            assert_same(IQData(x, skip_conversion=True), device=card)
-    torch.cuda.synchronize()
-
-
 @pytest.mark.card
 @pytest.mark.parametrize("dtype", [np.float32, np.int8], ids=["float32", "int8"])
 def test_card_gate_at_2_24_samples(card, dtype):
     x = bursts(dtype, 1 << 24, seed=24)
     iq = IQData(x, skip_conversion=True)
-    staged = iq.staged_planes(card)
-    kernel_matches_plain(staged, float(seg.detect_noise_level(iq.magnitudes)))
-    before = dict(pg.LAUNCHES)
+    metrics.metrics.clear()
     assert_same(iq, device=card)
-    assert pg.LAUNCHES["power_gate_stats"] == before["power_gate_stats"] + 1
-    assert pg.LAUNCHES["power_gate_crossings"] == before["power_gate_crossings"] + 1
+    scale = 1.0 if dtype == np.float32 else 64.0  # bursts' scale: tones at 0.6, noise 0.01
+    _, segments = assert_same(iq, noise=0.3 * scale, device=card)
+    counts = metrics.metrics.counters()
+    assert counts["gate.crossings"] >= len(segments) > 0
+    assert 1 <= counts["gate.settled_rows"] < 100
 
 
 @pytest.mark.card
 @pytest.mark.parametrize("loud", [np.nan, np.inf, 1e37, 2e36], ids=["nan", "inf", "overflow", "huge"])
 def test_card_gate_on_rows_past_float32_sums(card, loud):
-    """The kernel's sums carry NaN and inf as the host's means do, and a
+    """The card's sums carry NaN and inf as the host's means do, and a
     row past 2^120 is settled: the host path's level on the card too."""
     x = bursts(np.float32, 5037, seed=7)
     x[37 + 50 * 60:37 + 50 * 61, 0] = loud
+    metrics.metrics.clear()
     noise, _ = assert_same(IQData(x, skip_conversion=True), device=card)
+    counts = metrics.metrics.counters()
     assert (noise == 0) == np.isnan(loud)
+    assert ("gate.settled_rows" in counts) != np.isnan(loud)
+    assert counts["gate.crossings"] > 0
 
 
 @pytest.mark.card
 def test_card_estimate_counts_one_gate(card, monkeypatch):
-    """estimate() on the card gates once (both passes, one launch each) and
+    """estimate() on the card gates once (one crossings pass, counted) and
     gives the estimate of the host path on the same card."""
     x = cell_capture("wmbus_t1_hackrf_5msps")
     with monkeypatch.context() as m:
         m.setattr(est, "gates", lambda staged: False)
         want = est.estimate(x, device=card)
     assert want is not None
-    before = dict(pg.LAUNCHES)
+    positions, _ = pg.gate_crossings(IQData(x).staged_planes(card), want["noise"])
     metrics.metrics.clear()
     assert est.estimate(x, device=card) == want
-    assert metrics.metrics.counters()["gate.card"] == 1
-    assert pg.LAUNCHES["power_gate_stats"] == before["power_gate_stats"] + 1
-    assert pg.LAUNCHES["power_gate_crossings"] == before["power_gate_crossings"] + 1
+    counts = metrics.metrics.counters()
+    assert counts["gate.card"] == 1
+    assert counts["gate.crossings"] == len(positions) > 0

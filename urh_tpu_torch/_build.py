@@ -23,30 +23,27 @@ _SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "urh_tpu_torch")
 _SOURCES = ["fused_demod.cu", "fused_demod.cuh", "costas.cu", "costas.cuh",
             "stream_block.cu", "stream_block.cuh", "median_filter.cu", "median_filter.cuh",
-            "iir_feedback.cu", "iir_feedback.cuh", "power_gate.cu", "power_gate.cuh"]
+            "iir_feedback.cu", "iir_feedback.cuh"]
 
 # numerics-relevant flags are part of the cache key.  No --use_fast_math:
 # K3 parity needs the IEEE sqrtf and division, and the Costas loop the
 # full-accuracy sincosf (the median filter compares integers only);
 # the IIR feedback's products and sums round one by one, as its plain loop's;
 # -fmad=false keeps every product rounded as the separate PyTorch ops round
-# it (the power gate's float64 square root is IEEE in any case).
+# it.
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
-_C_FLOAT, _C_DOUBLE, _C_INT, _C_INT64, _PTR = (ctypes.c_float, ctypes.c_double, ctypes.c_int,
-                                               ctypes.c_int64, ctypes.c_void_p)
+_C_FLOAT, _C_INT, _C_INT64, _PTR = ctypes.c_float, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
 # launcher name -> argtypes (pointers and the stream as c_void_p).
-# _SIGNATURES holds fused_demod.cu's, which tools/i8_chunk_sweep.py also
-# binds on builds of that file alone.
+# _SIGNATURES holds fused_demod.cu's.
 _SIGNATURES = {
     "urh_fsk_f32": [_PTR, _C_INT64, _C_FLOAT, _C_FLOAT, _PTR, _PTR, _PTR],
     "urh_fsk_i8": [_PTR, _C_INT64, _C_FLOAT, _C_FLOAT, _C_INT, _PTR, _PTR],
     "urh_ask_f32": [_PTR, _C_INT64, _C_FLOAT, _C_FLOAT, _C_FLOAT, _PTR, _PTR, _PTR],
     "urh_ask_i8": [_PTR, _C_INT64, _C_INT, _C_INT, _C_INT, _PTR, _PTR],
 }
-# costas.cu's, stream_block.cu's, median_filter.cu's, iir_feedback.cu's and
-# power_gate.cu's
+# costas.cu's, stream_block.cu's, median_filter.cu's and iir_feedback.cu's
 _STREAM_SIGNATURES = {
     "urh_costas_f32": [_PTR, _C_INT64, _C_FLOAT, _C_FLOAT, _C_FLOAT, _C_INT, _C_FLOAT,
                        _C_FLOAT, _PTR, _PTR, _PTR],
@@ -67,10 +64,6 @@ _STREAM_SIGNATURES = {
     "urh_iir_feedback_f32": [_PTR, _C_INT64, _PTR, _C_INT, _PTR, _PTR],
     # not a launcher of the filter: the chain step's latency in SM cycles
     "urh_iir_chain_cycles": [_PTR, _C_INT64, _PTR, _PTR, _PTR],
-    "urh_power_gate_stats": [_PTR, _C_INT, _C_INT64, _C_INT64, _C_INT64, _PTR, _PTR, _PTR, _PTR,
-                             _PTR, _PTR],
-    "urh_power_gate_crossings": [_PTR, _C_INT, _C_INT64, _C_DOUBLE, _C_INT64, _PTR, _PTR, _PTR,
-                                 _PTR],
 }
 # the one launcher-side helper that returns a size, not a CUDA error
 _WORK_WORDS = ("urh_stream_block_work_words", [_C_INT64, _C_INT64, _C_INT])

@@ -11,9 +11,9 @@ default:
   5 ns a sample), and otherwise each stage below is placed on its own;
 * noise floor and message segmentation: the power gate
   (:mod:`urh_tpu_torch.ai.power_gate`) on a capture staged on the card,
-  two passes of a kernel whose chunk statistics and crossings the host
-  finishes to the host path's results, bit for bit; a capture unstaged or
-  staged on the CPU takes the host path (NumPy, on the magnitudes);
+  torch ops whose chunk statistics and crossings the host finishes to the
+  host path's results, bit for bit; a capture unstaged or staged on the
+  CPU takes the host path (NumPy, on the magnitudes);
 * modulation classification gathers the sampled messages from there,
   bucket by bucket (:func:`urh_tpu_torch.ai.device.classification_stats_staged`,
   one B7 launch a bucket), and applies the variance and spectral
@@ -345,7 +345,7 @@ def stage(iq_array: IQData, device):
 def gates(staged) -> bool:
     """Whether the power gate reads a staged capture: only on the card.  A
     capture staged on the CPU takes the host path (one NumPy pass), which
-    the gate's plain version would only repeat in two float64 passes."""
+    the gate's torch ops would only repeat in two float64 passes."""
     return staged is not None and staged.device.type == "cuda"
 
 

@@ -1,25 +1,21 @@
-"""The power gate of estimation on the staged capture (a CUDA kernel).
+"""The power gate of estimation on the staged capture (torch ops).
 
 ``estimate()`` gates a capture by its magnitudes twice: URH's noise floor
 (:func:`~urh_tpu_torch.ai.segmentation.detect_noise_level`, a vote over the
 1%-chunks' float32 means) and the messages' ranges
 (:func:`~urh_tpu_torch.ai.segmentation.segment_messages_from_magnitudes`,
 the gate's crossings and their hysteresis).  On the host both read a
-float64 copy of the whole capture's magnitudes.  Here two passes of
-``csrc/power_gate.cu`` (per-sample arithmetic in ``csrc/power_gate.cuh``)
-read the capture where the device already holds it
-(``IQData.staged_planes``: (n, 2) in its ingest dtype, raw units), with
-each magnitude in float64 as the host computes it, to the bit:
+float64 copy of the whole capture's magnitudes.  Here torch ops read the
+capture where the device already holds it (``IQData.staged_planes``: (n,
+2) in its ingest dtype, raw units), with each magnitude in float64 as the
+host computes it, to the bit:
 
 * :func:`gate_stats`: for each 1%-chunk of detect_noise_level's layout, the
   float64 sum of the samples' float32 levels and their float32 max;
 * :func:`gate_crossings`: the positions where ``magnitude > noise`` flips,
   in order, and the gate at sample 0.
 
-Each launches the kernel for a CUDA tensor (counted in :data:`LAUNCHES`,
-one a pass) and runs its plain version for a CPU one; the plain versions
-repeat the kernel's arithmetic and its order of summation, so the two agree
-to the bit.  The host finishes with the host path's own code:
+The host finishes with the host path's own code:
 :func:`noise_level` settles the vote exactly (below) and
 :func:`segments` runs ``segments_from_changes``.  Counters (util.metrics):
 ``gate.settled_rows`` (chunks whose mean the host recomputed) and
@@ -35,20 +31,11 @@ import math
 import numpy as np
 import torch
 
-from urh_tpu_torch import _build
 from urh_tpu_torch.ai import segmentation as seg
 from urh_tpu_torch.core.iq import IQData
 from urh_tpu_torch.util.metrics import metrics
 
-THREADS = 256  # kUrhGateThreads in csrc/power_gate.cuh
-ROW_BLOCKS = 8  # kUrhGateRowBlocks: blocks a 1%-chunk in the statistics pass
-TILE = THREADS * 16  # kUrhGateThreads * kUrhGateTileIters: a crossings tile
-
-_DTYPE_CODES = {torch.int8: 0, torch.uint8: 1, torch.int16: 2, torch.uint16: 3,
-                torch.float32: 4}
-
-# kernel name -> launches since the last reset; only a kernel launch counts
-LAUNCHES = {"power_gate_stats": 0, "power_gate_crossings": 0}
+_INGEST_DTYPES = (torch.int8, torch.uint8, torch.int16, torch.uint16, torch.float32)
 
 # A row sum from here on could overflow the host's float32 sum (and an inf
 # level makes it inf): the bound does not hold there, so such rows are
@@ -66,31 +53,26 @@ def mean_bound(chunk: int) -> float:
     at most c = ceil(log2 L) levels), after the row's first term; then one
     division.  So a term of the sum S of the L = chunk non-negative levels
     passes d <= 27 + c roundings and |M - S / L| <= ((d + 1) u / (1 - d u))
-    S / L with u = 2^-24.  The card's sum of the same levels in float64 is
-    within L 2^-53 S of S, its division one more rounding, so S / L <= A (1
-    + 2^-29) for L < 2^23.  (64 + 2 c) u is more than twice the whole; an
-    absolute 2^-148 covers the host's float32 division into the subnormal
-    range."""
+    S / L with u = 2^-24.  The card's sum of the same levels in float64 is,
+    in any order of summation (torch's), within L 2^-53 S of S, its division
+    one more rounding, so S / L <= A (1 + 2^-29) for L < 2^23.  (64 + 2 c) u
+    is more than twice the whole; an absolute 2^-148 covers the host's
+    float32 division into the subnormal range."""
     return (64 + 2 * math.ceil(math.log2(chunk + 1))) * 2.0 ** -24
 
 
 # ---------------------------------------------------------------------------
-# the kernel and its plain version
+# the gate's two passes
 # ---------------------------------------------------------------------------
 
 
-def _check(x: torch.Tensor) -> bool:
-    """Validate a staged capture; True for CUDA tensors, False for CPU ones."""
-    if not isinstance(x, torch.Tensor) or x.dtype not in _DTYPE_CODES:
+def _check(x: torch.Tensor):
+    """Validate a staged capture."""
+    if not isinstance(x, torch.Tensor) or x.dtype not in _INGEST_DTYPES:
         raise TypeError("expected a torch.Tensor in an ingest dtype "
                         "(int8, uint8, int16, uint16, float32)")
     if x.dim() != 2 or x.shape[1] != 2 or not x.is_contiguous():
         raise ValueError(f"expected contiguous (n, 2) interleaved samples, got {tuple(x.shape)}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {x.device}")
-    if x.device.type == "cuda" and x.data_ptr() % (2 * x.element_size()):
-        raise ValueError("the samples must be aligned to a whole sample")
-    return x.device.type == "cuda"
 
 
 def _magnitudes(x: torch.Tensor) -> torch.Tensor:
@@ -105,99 +87,24 @@ def _magnitudes(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(squares)
 
 
-def gate_stats_plain(x: torch.Tensor, skip: int, chunk: int) -> tuple:
-    """-> (sums, maxes) of the kernel, in its order: thread c of a row
-    (block c // THREADS) sums the levels at c, c + ROW_BLOCKS * THREADS, ...
-    from 0.0; each block halves its threads' sums (v[t] += v[t + h], h =
-    THREADS / 2 .. 1); the row adds its blocks' sums from 0.0 in order."""
-    rows = (len(x) - skip) // chunk
-    levels = _magnitudes(x[skip:skip + rows * chunk]).to(torch.float32).view(rows, chunk)
-    maxes = levels.amax(dim=1)
-    stride = ROW_BLOCKS * THREADS
-    steps = -(-chunk // stride)
-    padded = torch.zeros((rows, steps * stride), dtype=torch.float64, device=x.device)
-    padded[:, :chunk] = levels
-    acc = torch.zeros((rows, stride), dtype=torch.float64, device=x.device)
-    for part in padded.view(rows, steps, stride).unbind(1):
-        acc = acc + part  # a level of 0.0 past the row adds nothing
-    v = acc.view(rows, ROW_BLOCKS, THREADS)
-    h = THREADS // 2
-    while h:
-        v = v[..., :h] + v[..., h:2 * h]
-        h //= 2
-    sums = torch.zeros(rows, dtype=torch.float64, device=x.device)
-    for b in range(ROW_BLOCKS):
-        sums = sums + v[:, b, 0]
-    return sums, maxes
-
-
 def gate_stats(x: torch.Tensor, skip: int, chunk: int) -> tuple:
     """The statistics pass over the (len(x) - skip) // chunk rows of chunk
     samples from sample ``skip`` -> (sums float64, maxes float32) a row, on
-    x's device."""
-    if not _check(x):
-        return gate_stats_plain(x, skip, chunk)
+    x's device (summed in torch's order: mean_bound holds for any)."""
+    _check(x)
     rows = (len(x) - skip) // chunk
-    if rows <= 0 or rows > 65535:
-        raise ValueError(f"{rows} rows: the kernel takes 1 to 65,535")
-    dev = x.device
-    partial = torch.empty(rows * ROW_BLOCKS, dtype=torch.float64, device=dev)
-    partial_max = torch.empty(rows * ROW_BLOCKS, dtype=torch.float32, device=dev)
-    done = torch.zeros(rows, dtype=torch.int32, device=dev)
-    sums = torch.empty(rows, dtype=torch.float64, device=dev)
-    maxes = torch.empty(rows, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _build.library().urh_power_gate_stats(
-            x.data_ptr(), _DTYPE_CODES[x.dtype], skip, chunk, rows, partial.data_ptr(),
-            partial_max.data_ptr(), done.data_ptr(), sums.data_ptr(), maxes.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"urh_power_gate_stats launch failed with CUDA error {rc}")
-    LAUNCHES["power_gate_stats"] += 1
-    return sums, maxes
-
-
-def gate_crossings_plain(x: torch.Tensor, noise: float) -> tuple:
-    """-> (positions int32, above0): the kernel's result by torch ops."""
-    above = _magnitudes(x) > noise
-    positions = torch.nonzero(above[1:] != above[:-1]).flatten().to(torch.int32) + 1
-    return positions, bool(len(above) and above[0])
-
-
-def launch_crossings(x: torch.Tensor, noise: float) -> tuple:
-    """The crossings pass over a CUDA tensor of n >= 1 samples, enqueued
-    -> (positions, meta) on the card: room for n - 1 positions, the first
-    meta[0] of them the crossings; meta[1] the gate at sample 0."""
-    n = len(x)
-    if n >= 1 << 31:
-        raise ValueError(f"{n} samples: the kernel takes fewer than 2^31")
-    dev = x.device
-    tiles = -(-n // TILE)
-    work = torch.zeros(tiles + 1, dtype=torch.int64, device=dev)
-    positions = torch.empty(max(n - 1, 1), dtype=torch.int32, device=dev)
-    meta = torch.empty(2, dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _build.library().urh_power_gate_crossings(
-            x.data_ptr(), _DTYPE_CODES[x.dtype], n, float(noise), tiles, work.data_ptr(),
-            positions.data_ptr(), meta.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"urh_power_gate_crossings launch failed with CUDA error {rc}")
-    LAUNCHES["power_gate_crossings"] += 1
-    return positions, meta
+    levels = _magnitudes(x[skip:skip + rows * chunk]).to(torch.float32).view(rows, chunk)
+    return levels.to(torch.float64).sum(dim=1), levels.amax(dim=1)
 
 
 def gate_crossings(x: torch.Tensor, noise: float) -> tuple:
     """The crossings pass -> (positions, above0): the ascending positions i
     in [1, n) where ``magnitude > noise`` (float64) differs from sample i -
     1's, int32 on x's device, and the gate at sample 0."""
-    if not _check(x):
-        return gate_crossings_plain(x, float(noise))
-    if not len(x):
-        return torch.zeros(0, dtype=torch.int32, device=x.device), False
-    positions, meta = launch_crossings(x, noise)
-    count, above0 = meta.tolist()
-    return positions[:count], bool(above0)
+    _check(x)
+    above = _magnitudes(x) > float(noise)
+    positions = torch.nonzero(above[1:] != above[:-1]).flatten().to(torch.int32) + 1
+    return positions, bool(len(above) and above[0])
 
 
 # ---------------------------------------------------------------------------

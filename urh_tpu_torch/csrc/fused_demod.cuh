@@ -25,14 +25,8 @@
 
 // Samples per thread of the int8 kernels: 16 samples are 32 B of I/Q in
 // (two 16-byte loads) and 16 B of states out (one 16-byte store).  16 timed
-// faster than 32 (PERF.md).  URH_I8_CHUNK_SWEEP is passed only by
-// tools/i8_chunk_sweep.py, a one-off measurement that nothing in the
-// package depends on.
-#ifdef URH_I8_CHUNK_SWEEP
-constexpr int kUrhI8Chunk = URH_I8_CHUNK_SWEEP;
-#else
+// faster than 32 (PERF.md).
 constexpr int kUrhI8Chunk = 16;
-#endif
 
 // nvcc unrolls a chunk loop whose count is a constant after inlining, so
 // the chunk's samples and states stay in registers.

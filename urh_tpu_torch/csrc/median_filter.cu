@@ -35,8 +35,7 @@
 // are UrhMedianTile's (median_filter.cuh), which the tests also run on the
 // host.  On the H100 the bucket takes 0.016 ms, about half its byte bound,
 // of which some 7 us are the launch, the first loads and the last wave;
-// 2^25 cells run at 81-82% of the bound (PERF.md; tools/median_sweep.py
-// compares the shapes).
+// 2^25 cells run at 81-82% of the bound (PERF.md).
 //
 // Wider windows (k > 16) keep the first design, one thread an output by a
 // rank count over the window in shared memory (at most kk^2 comparisons);

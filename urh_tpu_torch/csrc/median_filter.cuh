@@ -30,15 +30,9 @@
 // window kernel); wider ones take the rank count.
 constexpr int kUrhMedianMaxK = 16;
 // The window kernel's shape: threads a block and T consecutive outputs a
-// thread (at most K: the windows of a run share a core).  A one-off sweep
-// rebuilds with others.
-#ifdef URH_MEDIAN_T_SWEEP
-constexpr int kUrhMedianThreads = URH_MEDIAN_THREADS_SWEEP;
-constexpr int kUrhMedianT = URH_MEDIAN_T_SWEEP;
-#else
+// thread (at most K: the windows of a run share a core).
 constexpr int kUrhMedianThreads = 128;
 constexpr int kUrhMedianT = 5;
-#endif
 
 // outputs a thread of the window kernel for the window K
 __host__ __device__ constexpr int urh_median_outputs(int k) {

@@ -20,15 +20,9 @@
 // urh_stream_groups picks `groups` from the block's size: 1 for a chunk of
 // a stream, so that many SMs share its demod, up to kUrhStreamMaxGroups
 // for a large block, so that a tile's fixed latency (its scans and its
-// look-back) spreads over more bytes.  URH_STREAM_*_SWEEP are passed only
-// by tools/stream_tile_sweep.py, a one-off measurement.
-#ifdef URH_STREAM_THREADS_SWEEP
-constexpr int kUrhStreamThreads = URH_STREAM_THREADS_SWEEP;
-constexpr int kUrhStreamTilesPerSm = URH_STREAM_TILES_PER_SM_SWEEP;
-#else
+// look-back) spreads over more bytes.
 constexpr int kUrhStreamThreads = 256;
 constexpr int kUrhStreamTilesPerSm = 8;
-#endif
 constexpr int kUrhStreamF32Group = 4;
 constexpr int kUrhStreamI8Group = 16;
 constexpr int kUrhStreamMaxGroups = 4;
