@@ -264,6 +264,103 @@ def test_histogram_bins_as_urh_tpu_device_route(monkeypatch):
                                   _device_binning(v, edges))
 
 
+def _edge_batch(seed):
+    """Messages of several sizes and scales, some on their edges, some
+    holding -0.0 and +0.0 with an edge at zero, one with one bin and one with
+    no bin, with np.arange edges as detect_center makes them."""
+    rng = np.random.default_rng(seed)
+    values, edges = [], []
+    for k in range(12):
+        v = (rng.normal(size=int(rng.integers(1, 3000))) * rng.uniform(1e-3, 5)).astype(np.float32)
+        if k % 3 == 0:
+            v = (np.round(v * 8) / 8).astype(np.float32)  # on the edges
+        if k % 4 == 1:
+            v[: len(v) // 2] = np.where(rng.random(len(v) // 2) < 0.5, -0.0, 0.0)
+        lo, hi, step = float(v.min()), float(v.max()), float(np.var(v))
+        e = np.arange(lo, hi + step, step) if step > 0 else np.array([lo])
+        if k % 4 == 1:
+            e = np.arange(-0.5, 0.625, 0.125)  # an edge at 0.0
+        values.append(v)
+        edges.append(e)
+    values += [np.array([1.0, 2.0], np.float32), np.array([3.0], np.float32)]
+    edges += [np.array([1.0, 2.0]), np.array([3.0])]  # one bin (both closed), none
+    return values, edges
+
+
+def _histograms(values, edges, resident=False):
+    """ai_device.histograms of separate messages on the CPU: their values laid
+    out by the call, or read from a resident tensor that holds them apart,
+    each after a gap of sentinels and with one more inside its span, past
+    its rank window."""
+    if not resident:
+        return ai_device.histograms(values, edges, device="cpu")
+    gap = np.full(7, -5.0, np.float32)
+    source = np.concatenate([part for v in values for part in (gap, v, gap[:1])])
+    spans, at = [], 0
+    for v in values:
+        at += len(gap)
+        spans.append((at, at + len(v) + 1, 0, len(v)))
+        at += len(v) + 1
+    return ai_device.histograms(values, edges, device="cpu",
+                                resident=(torch.from_numpy(source), spans, -np.inf))
+
+
+@pytest.mark.parametrize("resident", [False, True], ids=["laid_out", "resident"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_histograms_count_each_message_as_np_histogram(seed, resident):
+    """Below HISTOGRAM_MIN_VALUES every message of one batch gets
+    np.histogram's counts (float64 comparisons, the last bin closed)."""
+    values, edges = _edge_batch(seed)
+    got = _histograms(values, edges, resident)
+    for v, e, counts in zip(values, edges, got):
+        want = np.histogram(v, bins=e)[0] if len(e) > 1 else np.zeros(0, np.int64)
+        np.testing.assert_array_equal(counts, want)
+        np.testing.assert_array_equal(counts, jax_device.histogram(v, e))
+        assert counts.dtype == np.int64
+
+
+@pytest.mark.parametrize("resident", [False, True], ids=["laid_out", "resident"])
+def test_histograms_select_ranked_values_above_the_bound(resident):
+    """A span counts its values above ``above``, of those the ones ranked
+    first to last - 1, wherever sentinels lie inside it: the counts of
+    np.histogram over that selection, for spans that overlap and that cut a
+    run of sentinels."""
+    rng = np.random.default_rng(11)
+    source = (rng.normal(size=5000) * 0.3).astype(np.float32)
+    source[rng.random(5000) < 0.2] = -5.0  # sentinels everywhere
+    source[100:160] = -4.0  # at the bound: not above it
+    spans = [(0, 5000, 250, 3750), (90, 170, 0, 20), (1000, 3000, 0, 1), (1000, 3000, 37, 1200),
+             (4990, 5000, 0, 10)]
+    edges, want = [], []
+    for start, stop, first, last in spans:
+        chosen = source[start:stop][source[start:stop] > -4][first:last]
+        e = np.linspace(-1.0, 1.0, 17)
+        edges.append(e)
+        want.append(np.histogram(chosen, bins=e)[0])
+    values = [source[a:z][source[a:z] > -4][f:l] for a, z, f, l in spans]
+    got = ai_device.histograms(values, edges, device="cpu",
+                               resident=(torch.from_numpy(source), spans, -4) if resident else None)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_histograms_bin_the_large_message_alone_in_float32():
+    """One message of HISTOGRAM_MIN_VALUES values beside short ones in one
+    batch: urh_tpu's float32 binning for that message, np.histogram's counts
+    for the others."""
+    rng = np.random.default_rng(6)
+    big = np.round(rng.normal(size=ai_device.HISTOGRAM_MIN_VALUES) * 40).astype(np.float32) / 40
+    values, edges = _edge_batch(7)
+    values.insert(3, big)
+    edges.insert(3, np.arange(float(big.min()), float(big.max()) + 0.05, 0.05))
+    got = _histograms(values, edges)
+    np.testing.assert_array_equal(got[3], _device_binning(big, edges[3]))
+    assert not np.array_equal(got[3], np.histogram(big, bins=edges[3])[0])  # the rules differ
+    for i, (v, e) in enumerate(zip(values, edges)):
+        if i != 3 and len(e) > 1:
+            np.testing.assert_array_equal(got[i], np.histogram(v, bins=e)[0])
+
+
 # -- estimate and auto_detect --------------------------------------------------------
 
 
@@ -389,3 +486,263 @@ def test_ask_messages_at_the_estimated_parameters_equal_urh_tpu(dtype):
     got = [bytes(m.plain_bits) for m in urh_tpu_torch.demodulate(got_sig)]
     assert got == want
     assert len(want) > len(sent)  # urh_tpu's own split
+
+
+# -- the batched scan ------------------------------------------------------------
+
+# the benchmark generator's configurations at a test size (PSK: 2^17 samples,
+# five-octet frames; its rect comes from the plain Costas loop)
+SCAN_CAPTURES = {
+    "FSK float32": ("wmbus_t1_hackrf_5msps", 1 << 20, None),
+    "OOK int8": ("ook_ev1527_rtlsdr", 1 << 20, None),
+    "PSK int8": ("ieee802154_bpsk868_hackrf", 1 << 17, "PSK"),
+}
+
+
+def _bench_capture(config: str, n: int) -> np.ndarray:
+    from benchmark import registry
+    from benchmark.gen import ieee802154, signals
+
+    cfg = registry.config(registry.benchmark(), config)
+    seed = [2**31 + 23, 0]
+    if config == "ieee802154_bpsk868_hackrf":
+        return ieee802154.capture(cfg, seed, n, 5, layout=0)[0]
+    return signals.capture(cfg, seed, n, layout=0)[0]
+
+
+def _per_message(rect, segments, scan) -> list:
+    return [scan(rect[start:end]) for start, end in segments]
+
+
+@pytest.mark.parametrize("name", sorted(SCAN_CAPTURES))
+def test_batched_scan_equals_the_per_message_loop_and_urh_tpu(name, monkeypatch):
+    """estimate()'s scan of the benchmark's captures: every message's
+    (center, bit length, tolerance) as the per-message loop and urh_tpu's
+    loop give it on the same rect, one histogram call for all centers, and
+    urh_tpu's estimate."""
+    config, n, modulation = SCAN_CAPTURES[name]
+    x = _bench_capture(config, n)
+    assert x.dtype == (np.float32 if name.startswith("FSK") else np.int8)
+    seen = {}
+    centers = est.detect_centers
+
+    def spy(rect, segments, **kwargs):
+        seen.update(rect=rect, segments=list(segments))
+        return centers(rect, segments, **kwargs)
+
+    monkeypatch.setattr(est, "detect_centers", spy)
+    urh_tpu_torch.util.metrics.metrics.clear()
+    got = est.estimate(x, modulation=modulation, device="cpu")
+    counts = urh_tpu_torch.util.metrics.metrics.counters()
+    rect, segments = seen["rect"], seen["segments"]
+    assert counts["scan.messages"] == len(segments) >= 2
+    assert counts["scan.histogram_calls"] == 1
+
+    batched = est.scan_messages(rect, segments, device="cpu")
+    assert batched == _per_message(rect, segments,
+                                   lambda r: est._message_parameters(r, device="cpu"))
+    assert batched == _per_message(rect, segments, jax_estimate._message_parameters)
+    assert sum(c is not None for c, _, _ in batched) >= 2
+
+    want = urh_tpu.estimate(x, modulation=modulation)
+    for key in ("modulation_type", "bit_length", "tolerance", "noise"):
+        assert got[key] == want[key], (key, got, want)
+    atol = PSK_CENTER_ATOL if modulation == "PSK" else CENTER_ATOL
+    assert abs(got["center"] - want["center"]) <= atol, (got, want)
+
+
+def _levels(levels, lengths, seed=0, noise=0.01) -> np.ndarray:
+    """A rectangular signal: levels[i % len(levels)] for lengths[i] samples,
+    plus Gaussian noise."""
+    rng = np.random.default_rng(seed)
+    rect = np.repeat([levels[i % len(levels)] for i in range(len(lengths))], lengths)
+    return (rect + rng.normal(0, noise, len(rect))).astype(np.float32)
+
+
+# messages that take each branch of the scan, each scanned beside two
+# ordinary ones; the plateau lengths (runs of the rect) sit where the
+# rounding's digit count or its halves of the unit change
+SCAN_EDGE_CASES = {
+    "constant": np.full(800, 0.3, np.float32),
+    "all noise sentinel": np.full(800, -5.0, np.float32),
+    "one plateau": _levels([-0.5, 0.5], [400, 600]),
+    "tolerance 0": _levels([-0.5, 0.5], [100, 200, 100, 300, 100, 100, 200, 100] * 3),
+    "glitches merged": _levels([-0.5, 0.5], [100, 2, 98, 200, 1, 99, 100, 300, 2, 198] * 3),
+    "digits 9/10": _levels([-0.5, 0.5], [9, 10, 9, 10, 10, 9, 18, 20, 9] * 12),
+    "digits 99/100": _levels([-0.5, 0.5], [99, 100, 99, 100, 100, 99, 198, 200, 99] * 4),
+    "digits 999/1000": _levels([-0.5, 0.5], [999, 1000, 999, 1000, 1000, 999, 1998] * 2),
+    "halves of 10": _levels([-0.5, 0.5], [15, 25, 35, 45, 15, 25, 35, 45, 55] * 8),
+    "halves of 100": _levels([-0.5, 0.5], [150, 250, 350, 150, 250, 450, 150] * 3),
+    "halves at 4 digits": _levels([-0.5, 0.5], [1050, 1150, 1250, 1050, 2150, 1250] * 2),
+    "tied peaks": _levels([-0.5, 0.0, 0.5], [100] * 30, noise=0.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SCAN_EDGE_CASES))
+def test_batched_scan_edge_cases(case):
+    """The odd message and two ordinary ones in one batch: the same
+    (center, bit length, tolerance) as the port's per-message loop and
+    urh_tpu's, message by message."""
+    ordinary = [_levels([-0.5, 0.5], [100, 200, 100, 100, 300] * 5, seed=s) for s in (1, 2)]
+    messages = [ordinary[0], SCAN_EDGE_CASES[case], ordinary[1]]
+    gap = np.full(50, -5.0, np.float32)  # the noise sentinel between messages
+    rect = np.concatenate([part for m in messages for part in (gap, m)])
+    segments, at = [], 0
+    for m in messages:
+        segments.append((at + len(gap), at + len(gap) + len(m)))
+        at += len(gap) + len(m)
+    batched = est.scan_messages(rect, segments, device="cpu")
+    assert batched == _per_message(rect, segments,
+                                   lambda r: est._message_parameters(r, device="cpu"))
+    assert batched == _per_message(rect, segments, jax_estimate._message_parameters)
+    center, bit_length, tolerance = batched[1]
+    if case in ("constant", "all noise sentinel"):
+        assert batched[1] == (None, None, None)
+        assert est.detect_center(SCAN_EDGE_CASES[case], device="cpu") is None
+    elif case == "one plateau":
+        assert batched[1] == (None, None, None)
+        assert est.detect_center(SCAN_EDGE_CASES[case], device="cpu") is not None
+    elif case == "tolerance 0":
+        assert tolerance == 0 and bit_length == 100
+    elif case == "glitches merged":
+        assert tolerance >= 1 and bit_length == 100
+    elif case == "tied peaks":
+        counts = ai_device.histogram(*_center_histogram_inputs(SCAN_EDGE_CASES[case]),
+                                     device="cpu")
+        assert (counts == counts.max()).sum() >= 2
+    else:
+        assert center is not None
+
+
+def _center_histogram_inputs(rect):
+    """The values and edges detect_center counts."""
+    rect = rect[rect > -4]
+    rect = rect[int(0.05 * len(rect)) : int(0.95 * len(rect))]
+    step = float(np.var(rect))
+    return rect, np.arange(float(np.min(rect)), float(np.max(rect)) + step, step)
+
+
+def test_batched_scan_bins_one_large_message_in_float32(monkeypatch):
+    """With HISTOGRAM_MIN_VALUES lowered below one message's size and above
+    the others', the batch bins that message by urh_tpu's float32 rule and
+    the others by np.histogram's, as each message scanned alone does."""
+    messages = [_levels([-0.5, 0.5], [100, 200, 100, 100, 300] * k, seed=k) for k in (2, 6, 3)]
+    rect = np.concatenate(messages)
+    bounds = np.cumsum([0] + [len(m) for m in messages])
+    segments = list(zip(bounds[:-1], bounds[1:]))
+    monkeypatch.setattr(ai_device, "HISTOGRAM_MIN_VALUES", 4000)
+    values = [_center_histogram_inputs(m) for m in messages]
+    assert [len(v) >= 4000 for v, _ in values] == [False, True, False]
+    np.testing.assert_array_equal(_histograms(*map(list, zip(*values)))[1],
+                                  _device_binning(*values[1]))
+    batched = est.scan_messages(rect, segments, device="cpu")
+    assert batched == _per_message(rect, segments,
+                                   lambda r: est._message_parameters(r, device="cpu"))
+    assert all(c is not None for c, _, _ in batched)
+
+
+ROUNDING_CASES = {
+    "digit boundaries": [9, 10, 99, 100, 999, 1000, 9999, 10000],
+    "one digit": [1, 5, 9, 3],
+    "two and one digits, even count": [9, 10, 9, 10],
+    "halves of 10": [15, 25, 35, 45, 105, 115],
+    "halves of 100": [150, 250, 350, 1050, 1150],
+    "halves at 4 digits": [1050, 1150, 1250, 2150],
+    "zero": [0, 0, 10, 20],
+    "long": [10**18, 10**19 - 1, 10**19, 5 * 10**18],
+    "seeded": list(np.random.default_rng(8).integers(1, 5000, 301)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUNDING_CASES))
+def test_round_plateau_lengths_equals_urh_tpu(case):
+    """The digit count by comparison, the median over it and np.rint give
+    urh_tpu's len(str(p)), np.percentile and round, on a uint64 array (in
+    place) and on a list of ints."""
+    lengths = np.array(ROUNDING_CASES[case], dtype=np.uint64)
+    got, want = lengths.copy(), lengths.copy()
+    est.round_plateau_lengths(got)
+    jax_estimate.round_plateau_lengths(want)
+    np.testing.assert_array_equal(got, want)
+    as_list = [int(p) for p in lengths]
+    want_list = list(as_list)
+    est.round_plateau_lengths(as_list)
+    jax_estimate.round_plateau_lengths(want_list)
+    assert as_list == want_list and all(type(p) is int for p in as_list)
+
+
+BIT_LENGTH_CASES = {
+    "one divisor": [100, 200, 100, 300, 100, 400, 200],
+    "near multiples": [99, 201, 298, 102, 150, 49],
+    "no vote": [3, 5, 7],  # every vote 0: np.argsort's order throughout
+    "tied top votes": [3, 3, 5, 5, 7, 7],
+    "tied below the top": [50, 50, 50, 100, 150, 250, 350],
+    "glitch-sized": [1, 2, 3, 1, 2, 40, 80],
+    "EV1527 periods": [700, 2100, 700, 2100, 21700, 1400, 700],
+    "seeded": [int(x) for x in np.random.default_rng(9).integers(1, 2000, 60)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(BIT_LENGTH_CASES))
+def test_bit_length_vote_equals_urh_tpu(case):
+    """The vote over the divisor histogram, walked in np.argsort's order only
+    where votes tie, gives urh_tpu's bit length."""
+    lengths = BIT_LENGTH_CASES[case]
+    assert (est.get_bit_length_from_plateau_lengths(list(lengths))
+            == jax_estimate.get_bit_length_from_plateau_lengths(list(lengths)))
+
+
+@pytest.mark.parametrize("max_size", [None, 700])
+def test_detect_centers_read_a_resident_rect(max_size):
+    """detect_centers with the rect resident on a device (the CPU here, the
+    card in estimate()): each message's values selected there, sentinels
+    inside a message and max_size included, give the centers of the host's
+    own selection and of urh_tpu's detect_center, message by message."""
+    messages = [_levels([-0.5, 0.5], [100, 200, 100, 100, 300] * 3, seed=s) for s in range(4)]
+    messages[1][200:260] = -5.0  # a pause inside a message
+    messages[2][:3] = -4.0  # sentinels at its start only: a view on the host
+    gap = np.full(40, -5.0, np.float32)
+    rect = np.concatenate([part for m in messages for part in (gap, m)])
+    segments, at = [], 0
+    for m in messages:
+        segments.append((at + len(gap), at + len(gap) + len(m)))
+        at += len(gap) + len(m)
+    resident = est.detect_centers(rect, segments, max_size=max_size, device="cpu",
+                                  resident=torch.from_numpy(rect))
+    assert resident == est.detect_centers(rect, segments, max_size=max_size, device="cpu")
+    assert resident == [jax_estimate.detect_center(rect[s:e], max_size=max_size)
+                        for s, e in segments]
+    assert all(c is not None for c in resident)
+
+
+def test_bit_lengths_of_a_batch_equal_urh_tpu():
+    """bit_lengths over every case at once: the batched rounding, divisor
+    votes and walks give urh_tpu's bit length message by message."""
+    merged = [BIT_LENGTH_CASES[case] for case in sorted(BIT_LENGTH_CASES)]
+    assert est.bit_lengths(merged) == [jax_estimate.get_bit_length_from_plateau_lengths(list(m))
+                                       for m in merged]
+
+
+TOLERANCE_CASES = {
+    "no glitch": [100, 200, 100, 300, 100],
+    "near multiples": [99, 201, 298, 102],
+    "glitches": [100, 2, 98, 200, 1, 99, 100, 300, 2, 198],
+    "an outlier dropped": [1, 2, 50, 51, 49, 50, 52, 48, 50, 5000],
+    "all equal": [7, 7, 7],
+    "one length": [42],
+    "floats": [50.0, 50.0, 150.0, 3.0, 47.0, 100.0],
+    "seeded": [int(x) for x in np.random.default_rng(12).integers(1, 400, 80)],
+}
+
+
+@pytest.mark.parametrize("margin", [None, 1.0], ids=["batched", "numpy_test"])
+def test_tolerances_equal_urh_tpu(margin, monkeypatch):
+    """tolerances over every case at once, with the outlier test batched, and
+    with a margin so wide that every message takes NumPy's own test: urh_tpu's
+    tolerance message by message (None for a single length)."""
+    if margin is not None:
+        monkeypatch.setattr(est, "_Z_MARGIN", margin)
+    plateaus = [np.array(TOLERANCE_CASES[case]) for case in sorted(TOLERANCE_CASES)]
+    want = [jax_estimate.estimate_tolerance_from_plateau_lengths(p) for p in plateaus]
+    assert est.tolerances(plateaus) == want
+    assert [est.estimate_tolerance_from_plateau_lengths(p) for p in plateaus] == want

@@ -26,6 +26,7 @@ torch.set_num_threads(1)
 TWIN_EDGE_US = 200.0
 STAGES = ["estimate.stage", "estimate.noise", "estimate.segment", "estimate.classify",
           "estimate.rect", "estimate.scan"]
+SCAN_STAGES = ["estimate.scan.center", "estimate.scan.plateaus", "estimate.scan.vote"]
 
 
 def _own(spans):
@@ -196,10 +197,19 @@ def test_estimate_records_its_six_stages_once_in_order(kind, want):
     result = est.estimate(_capture(kind, seed=3), device="cpu")
     assert result["modulation_type"] == want and result["bit_length"] == 100
     spans = _own(metrics.metrics.timeline())
-    assert [s.name for s in spans] == STAGES
-    assert all(a.end_ns <= b.start_ns for a, b in zip(spans, spans[1:]))
+    stages = [s for s in spans if s.name not in SCAN_STAGES]
+    assert [s.name for s in stages] == STAGES
+    assert all(a.end_ns <= b.start_ns for a, b in zip(stages, stages[1:]))
+    # the scan's three sub-spans, in order, inside it
+    inner = [s for s in spans if s.name in SCAN_STAGES]
+    assert [s.name for s in inner] == SCAN_STAGES
+    assert all(a.end_ns <= b.start_ns for a, b in zip(inner, inner[1:]))
+    scan = stages[-1]
+    assert scan.start_ns <= inner[0].start_ns and inner[-1].end_ns <= scan.end_ns
     report = metrics.metrics.report()
-    assert all(report[name]["calls"] == 1 for name in STAGES)
+    assert all(report[name]["calls"] == 1 for name in STAGES + SCAN_STAGES)
+    counts = metrics.metrics.counters()
+    assert counts["scan.messages"] >= 2 and counts["scan.histogram_calls"] == 1
 
 
 def test_estimate_staged_on_the_cpu_counts_no_gate():

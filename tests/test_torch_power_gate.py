@@ -21,7 +21,8 @@ lie within ``mean_bound`` of NumPy's float32 means, its maxes are NumPy's.
 
 On a CUDA card (marked ``card``; here they skip): the gate against the
 host path, at 2^24 samples in float32 and int8, on rows past float32 sums
-and through ``estimate()``.  Run them on the card with
+and through ``estimate()``; and estimate()'s batched scan of the cells'
+2^24-sample captures against its CPU route.  Run them on the card with
 ``python -m pytest --noconftest -p no:cacheprovider -m card tests/test_torch_power_gate.py``
 (the repository's conftest loads JAX, which the card's machine lacks).
 """
@@ -434,3 +435,46 @@ def test_card_estimate_counts_one_gate(card, monkeypatch):
     counts = metrics.metrics.counters()
     assert counts["gate.card"] == 1
     assert counts["gate.crossings"] == len(positions) > 0
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("cell", ["wmbus_t1_hackrf_5msps", "ook_ev1527_rtlsdr",
+                                  "ieee802154_bpsk868_hackrf"])
+def test_card_scan_at_2_24_samples_equals_the_cpu_route(card, cell, monkeypatch):
+    """estimate() on the card of a cell's 2^24-sample capture counts every
+    message's center histogram in one device call (``scan.histogram_calls``
+    1, ``scan.messages`` the segments scanned) and gives the estimate it
+    gives with the scan's histograms counted on the CPU; the batched scan
+    on the card (the rect uploaded, as the values left on the card are read
+    inside estimate()) and on the CPU equal the per-message loop on the CPU."""
+    seed = [2**31 + 23, 0]
+    cfg = registry.config(BENCH, cell)
+    psk = cell == "ieee802154_bpsk868_hackrf"
+    x = (ieee802154.capture(cfg, seed, 1 << 24, 127, layout=0) if psk
+         else signals.capture(cfg, seed, 1 << 24, layout=0))[0]
+    modulation = "PSK" if psk else None
+    seen = {}
+    centers = est.detect_centers
+
+    def spy(rect, segments, device=None, resident=None):
+        seen.update(rect=rect, segments=list(segments), device=device, resident=resident)
+        return centers(rect, segments, device=device, resident=resident)
+
+    monkeypatch.setattr(est, "detect_centers", spy)
+    metrics.metrics.clear()
+    got = est.estimate(x, modulation=modulation, device=card)
+    counts = metrics.metrics.counters()
+    rect, segments = seen["rect"], seen["segments"]
+    assert got is not None and torch.device(seen["device"]).type == card.type
+    assert seen["resident"].device.type == card.type  # the rect is read on the card
+    assert counts["scan.histogram_calls"] == 1
+    assert counts["scan.messages"] == len(segments) > 1
+
+    on_cpu = est.scan_messages(rect, segments, device="cpu")
+    assert est.scan_messages(rect, segments, device=card) == on_cpu
+    assert on_cpu == [est._message_parameters(rect[start:end], device="cpu")
+                      for start, end in segments]
+    monkeypatch.setattr(est, "detect_centers",
+                        lambda rect, segments, device=None, resident=None:
+                        centers(rect, segments, device="cpu", resident=resident))
+    assert est.estimate(x, modulation=modulation, device=card) == got

@@ -31,7 +31,6 @@ import numpy as np
 import torch
 
 from urh_tpu_torch.ai.median_kernels import median_filter
-from urh_tpu_torch.dsp.demod import scalar_f32
 from urh_tpu_torch.native import get_library
 from urh_tpu_torch.util import placement
 
@@ -232,25 +231,140 @@ def histogram(values: np.ndarray, bin_edges: np.ndarray, device=None) -> np.ndar
     * from HISTOGRAM_MIN_VALUES on, urh_tpu's device binning: the values in
       [edges[0], edges[-1]] (compared in float32) go to bin
       int((v - lo) / step) in float32 arithmetic, clipped to the last bin.
-    """
-    n_bins = len(bin_edges) - 1
-    if n_bins <= 0:
-        return np.zeros(0, dtype=np.int64)
+
+    One histogram of :func:`histograms`."""
+    return histograms([values], [bin_edges], device=device)[0]
+
+
+def _f32_keys(bits):
+    """Order keys of float32 bit patterns (int32, a NumPy array or a torch
+    tensor): the magnitude bits, negated for a negative float, so that the
+    keys order as the floats do and -0.0 and +0.0 share the key 0."""
+    lib = torch if isinstance(bits, torch.Tensor) else np
+    return lib.where(bits < 0, -(bits & 0x7FFFFFFF), bits)
+
+
+def _f32_toward(x: np.ndarray, inf: float) -> np.ndarray:
+    """The float32 nearest float64 ``x`` on the side of ``inf`` (+inf: the
+    least float32 >= x; -inf: the greatest <= x)."""
+    with np.errstate(over="ignore"):
+        f = x.astype(np.float32)
+    off = f > x if inf < 0 else f < x
+    return np.where(off, np.nextafter(f, np.float32(inf)), f)
+
+
+def histograms(values: list, bin_edges: list, device=None, resident=None) -> list:
+    """histogram() of each pair ``values[m]``, ``bin_edges[m]``, all counted in
+    one pass on ``device`` (default: the CUDA card; ``"auto"`` places the
+    batch once, by histogram()'s rule over the values of the messages with
+    two bins or more).  Each message takes histogram()'s rule by its own
+    size.  The values go up laid end to end with a small int64 table, in one
+    copy; every count comes back in one copy, and in between the card waits
+    for nothing.
+
+    ``resident`` is (tensor, spans, above): the same values where they already
+    lie on a device, span m = (start, stop, first, last) selecting, of
+    tensor[start:stop], the values above ``above`` ranked first to last - 1.
+    Where the histograms run on that device they read the values there, and
+    only the table goes up.
+
+    The count is over slots: message j owns ``n_j + 1`` keys from slot
+    ``k_j`` on, and its bin i is slot ``k_j + 1 + i``; slot ``k_j`` takes
+    what falls outside the bins of message j - 1 or j, or outside message
+    j's span selection, and is dropped.  np.histogram's rule in float32
+    keys: a float32 value v is >= a float64 edge e exactly when v is >= the
+    least float32 >= e, and is <= the last edge exactly when it is below the
+    least float32 past the greatest float32 <= it.  Those float32 bounds, and
+    the values, become int64 keys, the message's index times 2^32 plus the
+    float32's order key, so that one searchsorted over every message's keys
+    gives each value its slot.  From HISTOGRAM_MIN_VALUES values on, a
+    message's slot is urh_tpu's float32 bin instead."""
+    n_bins = [len(e) - 1 for e in bin_edges]
+    out = [np.zeros(0, dtype=np.int64) for _ in values]
+    batch = [m for m, k in enumerate(n_bins) if k > 0]
+    if not batch:
+        return out
+    sizes = np.array([len(values[m]) for m in batch], dtype=np.int64)
+    bins = np.array([n_bins[m] for m in batch], dtype=np.int64)
     # under "auto" the card from HISTOGRAM_MIN_VALUES values, urh_tpu's rule
     device, _ = placement.choose(
         "ai.histogram", device,
-        lambda: len(values) >= placement.scaled_threshold(HISTOGRAM_MIN_VALUES) and n_bins >= 2)
-    v = torch.from_numpy(np.ascontiguousarray(values, dtype=np.float32)).to(device)
-    if len(v) >= HISTOGRAM_MIN_VALUES and n_bins >= 2:
-        lo = scalar_f32(bin_edges[0], device)
-        step = scalar_f32(bin_edges[1] - bin_edges[0], device)
-        inside = v[(v >= lo) & (v <= scalar_f32(bin_edges[-1], device))]
-        # a 0-dim tensor divisor keeps the IEEE division on the card
-        idx = ((inside - lo) / step).to(torch.int32).clamp(0, n_bins - 1)
+        lambda: int(sizes[bins >= 2].sum()) >= placement.scaled_threshold(HISTOGRAM_MIN_VALUES))
+    wide = (sizes >= HISTOGRAM_MIN_VALUES) & (bins >= 2)  # urh_tpu's float32 binning
+    b = len(batch)
+    in_place = resident is not None and resident[0].device == device
+    if in_place:
+        start, stop, first, last = np.array([resident[1][m] for m in batch], dtype=np.int64).T
+        lengths = stop - start  # the pass runs over each message's span
+        in_place = bool((lengths > 0).all())
+    if not in_place:
+        lengths = sizes
+    at = np.zeros(b + 1, dtype=np.int64)  # where each message starts in the pass
+    np.cumsum(lengths, out=at[1:])
+    n = int(at[-1])
+    slots = np.zeros(b + 1, dtype=np.int64)  # k_j
+    np.cumsum(bins + 1, out=slots[1:])
+    total = int(slots[-1])
+
+    # one buffer: the int64 table (the keys, then rows of b: lengths, k_j, n_j
+    # where urh_tpu's float32 binning counts, and for a resident source each
+    # span's start in the tensor less its start in the pass, first, last),
+    # then float32: the values unless they are resident, and each message's
+    # lower and upper edge and bin width
+    rows = total + (6 if in_place else 3) * b
+    sent = 0 if in_place else n
+    host = np.empty(8 * rows + 4 * (sent + 3 * b), dtype=np.uint8)
+    table, flat = host[:8 * rows].view(np.int64), host[8 * rows:].view(np.float32)
+    if not in_place:
+        for j, m in enumerate(batch):
+            flat[at[j]:at[j + 1]] = values[m]
+    edges = np.concatenate([np.asarray(bin_edges[m], dtype=np.float64) for m in batch])
+    ends = slots[1:] - 1  # each message's last edge
+    bounds = _f32_toward(edges, np.inf)
+    bounds[ends] = np.nextafter(_f32_toward(edges[ends], -np.inf), np.float32(np.inf))
+    table[:total] = (np.repeat(np.arange(b, dtype=np.int64), bins + 1) << 32) + _f32_keys(
+        bounds.view(np.int32).astype(np.int64))
+    flat[sent:sent + b], flat[sent + b:sent + 2 * b] = edges[slots[:-1]], edges[ends]
+    flat[sent + 2 * b:] = edges[slots[:-1] + 1] - edges[slots[:-1]]
+    table[total:total + 3 * b] = np.concatenate((lengths, slots[:-1], np.where(wide, bins, 0)))
+    if in_place:
+        table[total + 3 * b:] = np.concatenate((start - at[:-1], first, last))
+
+    both = torch.from_numpy(host).to(device)
+    t, up = both[:8 * rows].view(torch.int64), both[8 * rows:].view(torch.float32)
+    keys = t[:total]
+    lengths_d, k, wide_bins = t[total:total + 3 * b].view(3, b)
+    j = torch.repeat_interleave(torch.arange(b, device=device), lengths_d, output_size=n)
+    chosen = None
+    if in_place:
+        tensor, _, above = resident
+        start_less_at, first_d, last_d = t[total + 3 * b:].view(3, b)
+        v = tensor[torch.arange(n, device=device) + start_less_at[j]]
+        # each value's rank among its span's values above `above`
+        chosen = v > above
+        before = torch.cumsum(chosen, 0) - chosen.to(torch.int64)
+        rank = before - before[torch.cumsum(lengths_d, 0) - lengths_d][j]
+        del before
+        chosen &= (rank >= first_d[j]) & (rank < last_d[j])
+        del rank
     else:
-        edges = torch.from_numpy(np.asarray(bin_edges, dtype=np.float64)).to(device)
-        v = v.double()
-        idx = torch.searchsorted(edges, v, right=True) - 1
-        idx = torch.where(v == edges[-1], n_bins - 1, idx)  # the last bin is closed
-        idx = idx[(idx >= 0) & (idx < n_bins)]
-    return torch.bincount(idx, minlength=n_bins).cpu().numpy().astype(np.int64)
+        v = up[:n]
+    key = (j << 32) + _f32_keys(v.view(torch.int32))
+    slot = torch.searchsorted(keys, key, right=True)
+    del key
+    dump = k[j]
+    if wide.any():
+        lower, upper, width = up[sent:].view(3, b)
+        # IEEE division by a tensor; clipped to the message's last bin
+        binned = ((v - lower[j]) / width[j]).to(torch.int32).to(torch.int64)
+        binned = torch.minimum(binned.clamp_(min=0), wide_bins[j] - 1)
+        inside = (v >= lower[j]) & (v <= upper[j])
+        slot = torch.where(wide_bins[j] != 0, torch.where(inside, dump + 1 + binned, dump), slot)
+    if chosen is not None:
+        slot = torch.where(chosen, slot, dump)
+    counts = torch.zeros(total + 1, dtype=torch.int64, device=device)
+    counts.index_add_(0, slot, torch.ones(1, dtype=torch.int64, device=device).expand(n))
+    counts = counts.cpu().numpy()
+    for i, m in enumerate(batch):
+        out[m] = counts[slots[i] + 1:slots[i + 1]].copy()
+    return out

@@ -20,8 +20,12 @@ default:
   thresholds to the scalars that come back;
 * ``afp_demod`` demodulates the staged capture on the device, and the
   rectangular signal comes back once;
-* the per-message scans (center, plateau lengths, tolerance, bit length)
-  run on the host, their histograms on the device;
+* the per-message scans make one batched pass (:func:`scan_messages`):
+  every message's center histogram in one device call
+  (:func:`urh_tpu_torch.ai.device.histograms`, reading the rectangular
+  signal where it lies on the card), every message's plateau lengths,
+  tolerance, rounding and divisor vote in host passes over all messages,
+  the glitch merge message by message;
 * the final vote over the per-message results is a small host reduction.
 
 It returns ``{modulation_type, bit_length, center, tolerance, noise}``.
@@ -29,8 +33,13 @@ Each stage runs in a :mod:`urh_tpu_torch.util.metrics` span, in this
 order: ``estimate.stage``, ``estimate.noise`` (noise floor: the gate's
 statistics pass, or the host's magnitudes and vote), ``estimate.segment``
 (the gate's crossings pass and the hysteresis), ``estimate.classify`` (with
-the OOK merge), ``estimate.rect`` and ``estimate.scan`` (with the vote); the
-counter ``gate.card`` counts the gates run on a capture staged on the card.
+the OOK merge), ``estimate.rect`` and ``estimate.scan``, which holds
+``estimate.scan.center`` (the values' statistics, the batched histogram,
+the peaks), ``estimate.scan.plateaus`` (runs, tolerance, merge) and
+``estimate.scan.vote`` (rounding, divisor histograms, bit lengths, the
+vote).  The counter ``gate.card`` counts the gates run on a capture staged
+on the card, ``scan.messages`` the messages scanned and
+``scan.histogram_calls`` the device calls that counted their centers' histograms.
 """
 
 from __future__ import annotations
@@ -64,6 +73,9 @@ _PSK_RATIO = 10.0  # var(mag) vs var(median-filtered mag)
 _WAVELET_SCALE = 4
 _MEDIAN_ORDER = 11
 _MAX_CLASSIFIED_MESSAGES = 100
+# detect_center counts the rectangular signal's values above this; the noise
+# sentinel lies at or below it
+_SENTINEL_BOUND = -4
 
 
 def get_most_frequent_value(values: list):
@@ -197,24 +209,61 @@ def detect_modulation_for_messages(iq_data: IQData, message_indices: list,
 def detect_center(rectangular_signal: np.ndarray, max_size=None, device=None):
     """Mean of the two dominant histogram levels of the rectangular
     signal (AutoInterpretation.py:226-277); edge 5% discarded.  The
-    histogram is counted on ``device`` (default: the CUDA card)."""
-    rect = rectangular_signal[rectangular_signal > -4]  # noise sentinel
-    rect = rect[int(0.05 * len(rect)) : int(0.95 * len(rect))]
-    if max_size is not None and len(rect) > max_size:
-        rect = rect[:max_size]
-    if len(rect) == 0:
-        return None
+    histogram is counted on ``device`` (default: the CUDA card).  One
+    message of :func:`detect_centers`."""
+    return detect_centers(rectangular_signal, [(0, len(rectangular_signal))],
+                          max_size=max_size, device=device)[0]
 
-    lo, hi = float(np.min(rect)), float(np.max(rect))
-    step = float(np.var(rect))
-    try:
-        edges = np.arange(lo, hi + step, step)
-        counts = ai_device.histogram(rect, edges, device=device)
-    except (ZeroDivisionError, ValueError, MemoryError):
-        return None  # constant segment: no center to find
 
-    peaks = _dominant_local_maxima(counts, edges, wanted=2)
-    return np.mean(peaks) if peaks else None
+def detect_centers(rect: np.ndarray, segments: list, max_size=None, device=None,
+                   resident=None) -> list:
+    """detect_center of each message segment rect[start:end], every
+    histogram counted in one call of :func:`ai_device.histograms` on
+    ``device`` (the counter ``scan.histogram_calls``); ``resident`` is rect
+    as it lies on a device, whose values the histograms read there.  Each
+    message's values, bounds and bin width (its float32 variance) are taken
+    on the host as detect_center takes them: one float32 ulp of the width can
+    move the center."""
+    values, spans, edges, members = [], [], [], []
+    for m, (start, end) in enumerate(segments):
+        message = rect[start:end]
+        kept = _kept(message, message > _SENTINEL_BOUND)
+        first, last = int(0.05 * len(kept)), int(0.95 * len(kept))
+        if max_size is not None and last - first > max_size:
+            last = first + max_size
+        counted = kept[first:last]
+        if len(counted) == 0:
+            continue
+        lo, hi = float(np.min(counted)), float(np.max(counted))
+        step = float(np.var(counted))
+        try:
+            edges.append(np.arange(lo, hi + step, step))
+        except (ZeroDivisionError, ValueError, MemoryError):
+            continue  # constant segment: no center to find
+        values.append(counted)
+        spans.append((start, end, first, last))
+        members.append(m)
+
+    centers = [None] * len(segments)
+    if members:
+        metrics.count("scan.histogram_calls")
+        counts = ai_device.histograms(
+            values, edges, device=device,
+            resident=None if resident is None else (resident, spans, _SENTINEL_BOUND))
+        for m, c, e in zip(members, counts, edges):
+            peaks = _dominant_local_maxima(c, e, wanted=2)
+            centers[m] = np.mean(peaks) if peaks else None
+    return centers
+
+
+def _kept(values: np.ndarray, keep: np.ndarray) -> np.ndarray:
+    """values[keep]: a view where the kept values are one run (a message's
+    noise sentinels only at its ends), else the copy."""
+    n = int(np.count_nonzero(keep))
+    first = int(np.argmax(keep)) if n else 0
+    if keep[first:first + n].all():
+        return values[first:first + n]
+    return values[keep]
 
 
 def _dominant_local_maxima(counts: np.ndarray, edges: np.ndarray,
@@ -239,9 +288,66 @@ def _dominant_local_maxima(counts: np.ndarray, edges: np.ndarray,
 def estimate_tolerance_from_plateau_lengths(plateau_lengths, relative_max=0.05):
     """Glitch tolerance = largest run length still below ``relative_max``
     of the (outlier-free) maximum; the shortest run being already long
-    means zero tolerance."""
-    if len(plateau_lengths) <= 1:
-        return None
+    means zero tolerance.  One message of :func:`tolerances`."""
+    return tolerances([plateau_lengths], relative_max)[0]
+
+
+# how near its bound a distinct length's distance from the mean may lie
+# before the bound is taken as NumPy takes it: far above the rounding of a
+# sum of squares in another order (n * 2^-53 of it for n terms)
+_Z_MARGIN = 1e-9
+
+
+def tolerances(plateaus: list, relative_max=0.05) -> list:
+    """estimate_tolerance_from_plateau_lengths of each message's integer
+    plateau lengths, in one pass over all of them.  The outlier test keeps a
+    message's distinct lengths within 2 standard deviations of their mean.
+    The mean is NumPy's exactly: their sum is an integer below 2^53.  The
+    standard deviation is summed in another order than NumPy's, so a length
+    whose distance lies within _Z_MARGIN of the bound sends its message
+    through NumPy's own test."""
+    found = [None] * len(plateaus)
+    scanned = [i for i, p in enumerate(plateaus) if len(p) > 1]
+    exact = [i for i in scanned if not np.issubdtype(np.asarray(plateaus[i]).dtype, np.integer)]
+    batch = sorted(set(scanned) - set(exact))
+    if batch:
+        counts = np.array([len(plateaus[i]) for i in batch], dtype=np.int64)
+        lengths = np.concatenate([np.asarray(plateaus[i]) for i in batch])
+        message = np.repeat(np.arange(len(batch)), counts)
+        order = np.lexsort((lengths, message))
+        lengths, message = lengths[order], message[order]
+        new = np.ones(len(lengths), dtype=bool)
+        new[1:] = (lengths[1:] != lengths[:-1]) | (message[1:] != message[:-1])
+        value, owner = lengths[new], message[new]  # each message's distinct lengths, ascending
+        per = np.bincount(owner, minlength=len(batch))
+        first = np.cumsum(per) - per
+        mean = np.add.reduceat(value.astype(np.int64), first).astype(np.float64) / per
+        distance = np.abs(value.astype(np.float64) - mean[owner])
+        bound = 2 * np.sqrt(np.add.reduceat(distance * distance, first) / per)
+        inside = distance <= bound[owner] * (1 - _Z_MARGIN)
+        unsure = np.zeros(len(batch), dtype=bool)
+        unsure[owner[~inside & (distance <= bound[owner] * (1 + _Z_MARGIN))]] = True
+        kept_max = np.zeros(len(batch), dtype=value.dtype)
+        np.maximum.at(kept_max, owner[inside], value[inside])
+        limit = relative_max * kept_max
+        smallest = value[first]
+        below = value < np.maximum(2.0, limit)[owner]
+        glitch = np.zeros(len(batch), dtype=value.dtype)
+        np.maximum.at(glitch, owner[below], value[below])
+        for m, i in enumerate(batch):
+            if unsure[m]:
+                exact.append(i)
+            elif smallest[m] > 1 and smallest[m] >= limit[m]:
+                found[i] = 0
+            else:
+                found[i] = int(glitch[m])
+    for i in exact:
+        found[i] = _tolerance_by_numpy(plateaus[i], relative_max)
+    return found
+
+
+def _tolerance_by_numpy(plateau_lengths, relative_max: float) -> int:
+    """One message's tolerance with NumPy's own outlier test."""
     unique = np.unique(plateau_lengths)
     limit = relative_max * max_without_outliers(unique, z=2)
     if unique[0] > 1 and unique[0] >= limit:
@@ -259,12 +365,33 @@ def merge_plateau_lengths(plateau_lengths, tolerance=None):
     return _k.merge_plateaus(plateau_lengths, tolerance, max_count=10000)
 
 
+# 10 ** 1 ... 10 ** 19: a length's decimal digits are 1 + the powers at or below it
+_POWERS_OF_TEN = np.array([10 ** k for k in range(1, 20)], dtype=np.uint64)
+
+
 def round_plateau_lengths(plateau_lengths):
-    """Round lengths at the leading-digit resolution of the median value,
-    e.g. 99 -> 100, 293 -> 300 (AutoInterpretation.py:313-326)."""
-    digits = min(3, int(np.percentile([len(str(p)) for p in plateau_lengths], 50)))
-    unit = 10 ** (digits - 1)
-    plateau_lengths[:] = [int(round(p / unit)) * unit for p in plateau_lengths]
+    """Round integer lengths at the leading-digit resolution of the median
+    value, e.g. 99 -> 100, 293 -> 300 (AutoInterpretation.py:313-326).  One
+    message of :func:`_rounded`."""
+    lengths = np.asarray(plateau_lengths, dtype=np.uint64)
+    rounded = _rounded(lengths, np.array([len(lengths)]))
+    plateau_lengths[:] = rounded if isinstance(plateau_lengths, np.ndarray) else rounded.tolist()
+
+
+def _rounded(lengths: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """round_plateau_lengths of messages laid end to end (counts[m] uint64
+    lengths each, at least one): the median of each message's decimal digit
+    counts (np.percentile's 50th of integers: the middle one, or the floor of
+    the two middle ones' mean), and each length / unit rounded half to even
+    as Python's round rounds a float."""
+    message = np.repeat(np.arange(len(counts)), counts)
+    digits = 1 + np.searchsorted(_POWERS_OF_TEN, lengths, side="right")
+    digits = digits[np.lexsort((digits, message))]
+    mid = np.cumsum(counts) - counts + (counts - 1) // 2
+    median = np.where(counts % 2 == 1, digits[mid],
+                      (digits[mid] + digits[np.minimum(mid + 1, len(digits) - 1)]) // 2)
+    unit = (10 ** (np.minimum(3, median) - 1))[message]
+    return np.rint(lengths / unit).astype(np.uint64) * unit.astype(np.uint64)
 
 
 def get_tolerant_greatest_common_divisor(numbers):
@@ -276,49 +403,138 @@ def get_tolerant_greatest_common_divisor(numbers):
 def get_bit_length_from_plateau_lengths(merged_plateau_lengths) -> int:
     """Bit length = best-voted approximate divisor of the plateau
     lengths, preferring the smallest divisor within 25% of the top vote
-    (a bare argmax could be a multiple of the true length)."""
+    (a bare argmax could be a multiple of the true length).  One message
+    of :func:`bit_lengths`."""
     if len(merged_plateau_lengths) == 0:
         return 0
     if len(merged_plateau_lengths) == 1:
         return int(merged_plateau_lengths[0])
+    return bit_lengths([merged_plateau_lengths])[0]
 
-    lengths = np.array(merged_plateau_lengths, dtype=np.uint64)
-    round_plateau_lengths(lengths)
+
+def bit_lengths(merged: list) -> list:
+    """get_bit_length_from_plateau_lengths of each message's merged plateau
+    lengths (two or more each), the rounding and the divisor votes of every
+    message in one pass.
+
+    A message's vote walks the lengths by descending votes (np.argsort's
+    order over the divisor histogram, reversed) while a length keeps a
+    quarter of the top vote, and moves the winner to a length at most half
+    of it.  Votes above zero fall only on the message's distinct lengths;
+    where those that keep a quarter of the top vote are all distinct, their
+    order is the votes' own.  A top vote of 0 or a tie among them takes
+    np.argsort's order over the message's whole histogram."""
+    counts = np.array([len(m) for m in merged], dtype=np.int64)
+    lengths = _rounded(np.concatenate([np.asarray(m, dtype=np.uint64) for m in merged]), counts)
+    message = np.repeat(np.arange(len(merged)), counts)
+
+    # each message's distinct nonzero lengths, ascending, and how often each comes
+    order = np.lexsort((lengths, message))
+    lengths, message = lengths[order], message[order]
+    new = np.ones(len(lengths), dtype=bool)
+    new[1:] = (lengths[1:] != lengths[:-1]) | (message[1:] != message[:-1])
+    at = np.flatnonzero(new)
+    times = np.diff(np.append(at, len(lengths)))
+    value, owner = lengths[at], message[at]
+    nonzero = value != 0
+    value, owner, times = value[nonzero], owner[nonzero], times[nonzero]
+
+    # every pair i < j of one message's distinct lengths, as the divisor
+    # histogram compares it: min value[i], max value[j]
+    per = np.bincount(owner, minlength=len(merged))
+    after = (np.cumsum(per) - per)[owner] + per[owner] - 1 - np.arange(len(value))
+    i = np.repeat(np.arange(len(value)), after)
+    j = i + 1 + np.arange(len(i)) - np.repeat(np.cumsum(after) - after, after)
+    u = value.astype(np.float64)
+    hit = u[j] / u[i] - (value[j] // value[i]).astype(np.float64) < 0.2
+    partners = np.bincount(i[hit], weights=times[j[hit]], minlength=len(value))
+    votes = times * (times - 1) // 2 + times * partners.astype(np.int64)
+
+    top = np.zeros(len(merged), dtype=np.int64)
+    np.maximum.at(top, owner, votes)
+    ahead = votes >= 0.25 * top[owner]
+    ranked = np.lexsort((-votes[ahead], owner[ahead]))
+    walk_owner, walk_votes = owner[ahead][ranked], votes[ahead][ranked]
+    walk_value = value[ahead][ranked].tolist()
+    tied = np.zeros(len(merged), dtype=bool)
+    tied[walk_owner[1:][(walk_owner[1:] == walk_owner[:-1]) & (walk_votes[1:] == walk_votes[:-1])]] = True
+    first = np.searchsorted(walk_owner, np.arange(len(merged) + 1)).tolist()
+
+    found = []
+    for m in range(len(merged)):
+        if top[m] == 0 or tied[m]:
+            found.append(_vote_in_argsort_order(lengths[message == m]))
+            continue
+        winner = walk_value[first[m]]
+        for candidate in walk_value[first[m] + 1:first[m + 1]]:
+            if candidate <= 0.5 * winner:
+                winner = candidate
+        found.append(int(winner))
+    return found
+
+
+def _vote_in_argsort_order(lengths: np.ndarray) -> int:
+    """A message's vote over its whole divisor histogram, in np.argsort's
+    order: the winner moves at most log2(winner) times."""
     votes = _k.get_threshold_divisor_histogram(lengths)
-    if len(votes) == 0:
-        return 0
-
     by_vote = np.argsort(votes)[::-1]
-    winner = by_vote[0]
-    floor_votes = 0.25 * votes[winner]
-    for candidate in by_vote[1:]:
-        if votes[candidate] < floor_votes:
-            break
-        if candidate <= 0.5 * winner:
-            winner = candidate
-    return int(winner)
+    by_vote = by_vote[:int(np.count_nonzero(votes >= 0.25 * votes[by_vote[0]]))]
+    winner, k = by_vote[0], 1
+    while True:
+        smaller = np.flatnonzero(by_vote[k:] <= 0.5 * winner)
+        if len(smaller) == 0:
+            return int(winner)
+        k += int(smaller[0])
+        winner = by_vote[k]
+        k += 1
 
 
 def _message_parameters(rect: np.ndarray, device=None) -> tuple:
     """(center, bit_length, tolerance) of one message's rectangular
     signal; center/bit_length are None when undecidable, but a computed
     tolerance is reported regardless (it feeds the tolerance vote even
-    for messages whose bit length cannot be established)."""
-    center = detect_center(rect, device=device)
-    if center is None:
-        return None, None, None
+    for messages whose bit length cannot be established).  One message of
+    :func:`scan_messages`."""
+    return scan_messages(rect, [(0, len(rect))], device=device)[0]
 
-    plateaus = _k.get_plateau_lengths(rect, center, percentage=25)
-    tolerance = estimate_tolerance_from_plateau_lengths(plateaus)
 
-    merged = merge_plateau_lengths(plateaus, tolerance=tolerance or 0)
-    if len(merged) < 2:
-        return None, None, tolerance
+def message_plateaus(rect: np.ndarray, segments: list, centers: list) -> list:
+    """(tolerance, merged plateau lengths) of each segment with a center,
+    None for the others: the plateau lengths of every segment in one pass."""
+    found = [i for i, center in enumerate(centers) if center is not None]
+    plateaus = _k.plateau_lengths_of_spans(rect, [segments[i] for i in found],
+                                           [centers[i] for i in found], percentage=25)
+    scans = [None] * len(segments)
+    for i, lengths, tolerance in zip(found, plateaus, tolerances(plateaus)):
+        scans[i] = tolerance, merge_plateau_lengths(lengths, tolerance=tolerance or 0)
+    return scans
 
-    bit_length = get_bit_length_from_plateau_lengths(merged)
-    if bit_length <= (tolerance or 0) + 1:
-        return None, None, tolerance
-    return center, bit_length, tolerance
+
+def message_parameters(centers: list, scans: list) -> list:
+    """(center, bit_length, tolerance) of each message from its center and
+    its plateau scan (see _message_parameters); the bit lengths of all in one
+    pass."""
+    voted = [i for i, scan in enumerate(scans) if scan is not None and len(scan[1]) >= 2]
+    lengths = dict(zip(voted, bit_lengths([scans[i][1] for i in voted]) if voted else []))
+    params = []
+    for i, (center, scan) in enumerate(zip(centers, scans)):
+        if scan is None:
+            params.append((None, None, None))
+            continue
+        tolerance = scan[0]
+        if i not in lengths or lengths[i] <= (tolerance or 0) + 1:
+            params.append((None, None, tolerance))
+        else:
+            params.append((center, lengths[i], tolerance))
+    return params
+
+
+def scan_messages(rect: np.ndarray, segments: list, device=None) -> list:
+    """(center, bit_length, tolerance) of each message segment of the
+    rectangular signal: the centers' histograms in one device call, the
+    plateau lengths in one pass, then each message's small arrays."""
+    centers = detect_centers(rect, segments, device=device)
+    return message_parameters(centers, message_plateaus(rect, segments, centers))
 
 
 # ---------------------------------------------------------------------------
@@ -388,36 +604,47 @@ def estimate(iq_array, noise: float = None, modulation: str = None, device=None)
     if demod_kind not in ("ASK", "FSK", "PSK"):
         raise ValueError("unsupported modulation")
     with metrics.span("estimate.rect"):
-        rect = _demod.afp_demod(staged if staged is not None else iq_array.data, noise,
-                                demod_kind, 2, dtype=iq_array.data.dtype,
-                                device=device).cpu().numpy()
+        resident = _demod.afp_demod(staged if staged is not None else iq_array.data, noise,
+                                    demod_kind, 2, dtype=iq_array.data.dtype, device=device)
+        rect = resident.cpu().numpy()
 
     with metrics.span("estimate.scan"):
-        centers, bit_lengths, tolerances = [], [], []
-        for start, end in segments:
-            center, bit_length, tolerance = _message_parameters(rect[start:end],
-                                                                device=device)
-            if tolerance is not None:
-                tolerances.append(tolerance)
-            if center is not None:
-                centers.append(center)
-                bit_lengths.append(bit_length)
+        metrics.count("scan.messages", len(segments))
+        with metrics.span("estimate.scan.center"):
+            # on the card the histograms read the rect there; on the CPU
+            # laying the values out is one copy, cheaper than selecting them
+            centers = detect_centers(rect, segments, device=device,
+                                     resident=resident if resident.is_cuda else None)
+        with metrics.span("estimate.scan.plateaus"):
+            scans = message_plateaus(rect, segments, centers)
+        with metrics.span("estimate.scan.vote"):
+            return _vote(message_parameters(centers, scans), modulation, noise)
 
-        if modulation in ("OOK", "ASK"):
-            # ASK center tends toward the minimum of found centers
-            center = min_without_outliers(np.array(centers), z=2)
-        else:
-            center = np.mean(centers) if centers else None
-        if center is None:
-            return None
 
-        bit_length = get_most_frequent_value(bit_lengths)
-        if bit_length is None:
-            return None
+def _vote(params: list, modulation: str, noise: float) -> dict:
+    """The estimate from every message's (center, bit_length, tolerance)."""
+    centers, bit_lengths, tolerances = [], [], []
+    for center, bit_length, tolerance in params:
+        if tolerance is not None:
+            tolerances.append(tolerance)
+        if center is not None:
+            centers.append(center)
+            bit_lengths.append(bit_length)
 
-        tolerance = (int(np.percentile(tolerances, 50)) if tolerances
-                     else max(1, int(0.05 * bit_length)))
+    if modulation in ("OOK", "ASK"):
+        # ASK center tends toward the minimum of found centers
+        center = min_without_outliers(np.array(centers), z=2)
+    else:
+        center = np.mean(centers) if centers else None
+    if center is None:
+        return None
 
+    bit_length = get_most_frequent_value(bit_lengths)
+    if bit_length is None:
+        return None
+
+    tolerance = (int(np.percentile(tolerances, 50)) if tolerances
+                 else max(1, int(0.05 * bit_length)))
     return {
         "modulation_type": "ASK" if modulation == "OOK" else modulation,
         "bit_length": bit_length,

@@ -34,39 +34,81 @@ def median_filter(data: np.ndarray, k: int = 3, device=None) -> np.ndarray:
 def get_plateau_lengths(rect_data: np.ndarray, center: float, percentage: int = 25) -> np.ndarray:
     """Run lengths of (sample <= center) polarity until the cumulative
     appended length reaches ``percentage`` of the data
-    (auto_interpretation.pyx:179-208)."""
+    (auto_interpretation.pyx:179-208).  One message of
+    :func:`plateau_lengths_of_spans`."""
     rect_data = np.asarray(rect_data)
-    n = len(rect_data)
-    if n == 0 or center is None:
+    if center is None:
         return np.array([], dtype=np.uint64)
+    return plateau_lengths_of_spans(rect_data, [(0, len(rect_data))], [center], percentage)[0]
 
-    above = rect_data > center
-    change = np.flatnonzero(above[1:] != above[:-1]) + 1
-    bounds = np.concatenate(([0], change, [n]))
-    runs = np.diff(bounds).astype(np.uint64)
 
-    # only complete runs get appended (the final, still-open run never is)
-    appended = runs[:-1]
-    if len(appended) == 0:
-        return np.array([], dtype=np.uint64)
+def plateau_lengths_of_spans(rect: np.ndarray, spans: list, centers: list,
+                             percentage: int = 25) -> list:
+    """get_plateau_lengths of each span ``rect[start:end]`` at its own center,
+    in one pass over the spans laid end to end: each sample is compared with
+    its span's center as get_plateau_lengths compares it, every span starts
+    a run, a span's last (still open) run is never appended, and a span's
+    runs stop at the first whose cumulative length reaches ``percentage`` of
+    the span."""
+    lengths = np.array([end - start for start, end in spans], dtype=np.int64)
+    starts = np.zeros(len(spans) + 1, dtype=np.int64)
+    np.cumsum(lengths, out=starts[1:])
+    total = int(starts[-1])
+    if total == 0:
+        return [np.array([], dtype=np.uint64) for _ in spans]
 
-    limit = percentage * n // 100
-    cum = np.cumsum(appended)
-    reached = np.flatnonzero(cum >= limit)
+    above = np.empty(total, dtype=bool)
+    for (start, end), center, at in zip(spans, centers, starts):
+        _greater(rect[start:end], center, above[at:at + end - start])
+    first = np.empty(total, dtype=bool)  # a run starts here
+    first[0] = True
+    np.not_equal(above[1:], above[:-1], out=first[1:])
+    first[starts[:-1][lengths > 0]] = True
+    bounds = np.flatnonzero(first)
+    ends = np.append(bounds[1:], total)
+    span = np.searchsorted(starts[1:], bounds, side="right")
+    # only complete runs get appended (each span's final, open run never is)
+    appended = ends != starts[1:][span]
+    runs, span = (ends - bounds)[appended], span[appended]
+
+    count = np.bincount(span, minlength=len(spans))
+    first_run = np.zeros(len(spans) + 1, dtype=np.int64)
+    np.cumsum(count, out=first_run[1:])
+    cum = np.cumsum(runs)
+    cum -= np.concatenate(([0], cum))[first_run[:-1]][span]  # within the span
+    limit = percentage * lengths // 100
+    reached = np.flatnonzero(cum >= limit[span])
+    cut = first_run[1:].copy()  # end of each span's kept runs
     if len(reached):
-        return appended[: reached[0] + 1]
-    return appended
+        spans_reached = span[reached]
+        first_reached = np.flatnonzero(np.diff(spans_reached, prepend=-1))
+        cut[spans_reached[first_reached]] = reached[first_reached] + 1
+    runs = runs.astype(np.uint64)
+    return [runs[a:z] for a, z in zip(first_run[:-1], cut)]
+
+
+def _greater(values: np.ndarray, center, out: np.ndarray):
+    """np.greater(values, center, out=out).  Where NumPy compares float32
+    values with the center in float64, the comparison runs in float32 with
+    the greatest float32 at or below the center: a float32 exceeds the center
+    exactly when it exceeds that one."""
+    if values.dtype == np.float32 and np.result_type(values, center) == np.float64:
+        below = np.float32(center)
+        if below > center:
+            below = np.nextafter(below, np.float32(-np.inf))
+        center = below
+    np.greater(values, center, out=out)
 
 
 def merge_plateaus(plateaus: np.ndarray, tolerance: int, max_count: int) -> np.ndarray:
     """Merge glitch plateaus (<= tolerance) into their neighbours
-    (auto_interpretation.pyx:145-176)."""
-    plateaus = np.asarray(plateaus, dtype=np.uint64)
+    (auto_interpretation.pyx:145-176), stepping over Python ints."""
+    plateaus = np.asarray(plateaus, dtype=np.uint64).tolist()
     L = len(plateaus)
     if L == 0:
         return np.zeros(0, dtype=np.uint64)
 
-    result = np.empty(L, dtype=np.uint64)
+    result = [0] * L
     result[0] = 0 if plateaus[0] <= tolerance else plateaus[0]
     current = 0
     i = 1
@@ -76,13 +118,13 @@ def merge_plateaus(plateaus: np.ndarray, tolerance: int, max_count: int) -> np.n
             n = 2
             while i + n < L and plateaus[i + n] <= tolerance:
                 n += 2
-            result[current] = plateaus[i - 1 : min(L, i + n)].sum()
+            result[current] = sum(plateaus[i - 1 : min(L, i + n)])
             i += n
         else:
             current += 1
             result[current] = plateaus[i]
             i += 1
-    return result[: current + 1]
+    return np.array(result[: current + 1], dtype=np.uint64)
 
 
 def get_threshold_divisor_histogram(plateau_lengths: np.ndarray, threshold: float = 0.2) -> np.ndarray:
@@ -97,22 +139,18 @@ def get_threshold_divisor_histogram(plateau_lengths: np.ndarray, threshold: floa
     # The histogram value only depends on the pair's VALUES, so collapse to
     # unique values with multiplicities: O(U^2) instead of O(L^2).
     unique, counts = np.unique(p, return_counts=True)
-    nz = unique != 0
-    unique, counts = unique[nz], counts[nz]
+    if unique[0] == 0:
+        unique, counts = unique[1:], counts[1:]
     if len(unique) == 0:
         return histogram
 
-    # identical pairs: ratio exactly 1 -> always below threshold
-    histogram[unique.astype(np.int64)] += (counts * (counts - 1) // 2).astype(np.uint64)
-
-    # distinct pairs: unique is sorted, so min = unique[i], max = unique[j], i<j
+    # unique is sorted, so in a distinct pair i < j min = unique[i], max =
+    # unique[j]; identical pairs have ratio exactly 1, always below threshold
     u = unique.astype(np.float64)
-    with np.errstate(divide="ignore", invalid="ignore"):
-        frac = u[None, :] / u[:, None] - (unique[None, :] // unique[:, None]).astype(np.float64)
-    iu = np.triu_indices(len(unique), k=1)
-    hit = frac[iu] < threshold
-    pair_counts = (counts[iu[0]] * counts[iu[1]])[hit]
-    np.add.at(histogram, unique[iu[0]][hit].astype(np.int64), pair_counts.astype(np.uint64))
+    frac = u[None, :] / u[:, None] - (unique[None, :] // unique[:, None]).astype(np.float64)
+    hit = np.triu(frac < threshold, 1)
+    pairs = (hit * counts[None, :]).sum(axis=1) * counts
+    histogram[unique.astype(np.int64)] = (counts * (counts - 1) // 2 + pairs).astype(np.uint64)
     return histogram
 
 

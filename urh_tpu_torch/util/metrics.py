@@ -25,7 +25,11 @@ thread row.
 Spans and counters of the port: ``estimate.stage``, ``estimate.noise``,
 ``estimate.segment``, ``estimate.classify``, ``estimate.rect`` and
 ``estimate.scan`` (``ai/estimate.py``, one each an estimate, in that
-order), with the counters ``gate.card`` (``estimate()``: a power gate run on
+order; inside ``estimate.scan`` the spans ``estimate.scan.center``,
+``estimate.scan.plateaus`` and ``estimate.scan.vote``), with the counters
+``scan.messages`` (the messages an estimate scans), ``scan.histogram_calls``
+(``detect_centers``: one device call counting the centers' histograms of all
+the messages it is given), ``gate.card`` (``estimate()``: a power gate run on
 a capture staged on the card), ``gate.settled_rows`` and ``gate.crossings``
 (``ai/power_gate.py``: chunk means the host recomputed, crossing positions
 back from the device); ``demod.costas`` (``dsp/costas.py``, one a pass of the Costas loop,
