@@ -61,6 +61,7 @@ from urh_tpu_torch.ai.segmentation import (
     segment_messages_from_magnitudes,
 )
 from urh_tpu_torch.core.iq import IQData
+from urh_tpu_torch.core.xfer import to_host
 from urh_tpu_torch.dsp import demod as _demod
 from urh_tpu_torch.util import placement
 from urh_tpu_torch.util.metrics import metrics
@@ -606,7 +607,7 @@ def estimate(iq_array, noise: float = None, modulation: str = None, device=None)
     with metrics.span("estimate.rect"):
         resident = _demod.afp_demod(staged if staged is not None else iq_array.data, noise,
                                     demod_kind, 2, dtype=iq_array.data.dtype, device=device)
-        rect = resident.cpu().numpy()
+        rect = to_host(resident)
 
     with metrics.span("estimate.scan"):
         metrics.count("scan.messages", len(segments))

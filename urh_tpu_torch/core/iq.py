@@ -24,6 +24,12 @@ import numpy as np
 import torch
 
 
+# convert_to(np.float32)'s scale and shift of each ingest dtype
+_FLOAT32_SCALE = {np.int8: (1 / 128, 0.0), np.uint8: (1 / 128, -1.0),
+                  np.int16: (1 / 32768, 0.0), np.uint16: (1 / 32768, -1.0),
+                  np.float32: (1.0, 0.0)}
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``device`` when given, else the
     CUDA card.  Without a card the default raises instead of moving to the
@@ -217,7 +223,27 @@ class IQData:
         return max_magnitude_for_dtype(self._data.dtype)
 
     def as_complex64(self) -> np.ndarray:
-        return np.ascontiguousarray(self.convert_to(np.float32)).flatten(order="C").view(np.complex64)
+        """The samples as a complex64 array of the caller's own: a float32
+        capture is copied, any other is converted once, into the array
+        returned (a second pass into fresh pages costs as much as the first)."""
+        planes = self.convert_to(np.float32)
+        if planes is self._data:
+            return np.ascontiguousarray(planes).flatten(order="C").view(np.complex64)
+        return np.ascontiguousarray(planes).reshape(-1).view(np.complex64)
+
+    def staged_complex64(self, device) -> torch.Tensor:
+        """:meth:`as_complex64`'s values as an (N,) complex64 tensor on
+        ``device``, converted there from :meth:`staged_planes`: the capture
+        crosses PCIe in its own dtype, and the host makes no pass over it.
+        Each conversion scales integers by a power of two (and shifts the
+        unsigned ones by 1), so every value is exact and equals the host's."""
+        if self._data.dtype.type not in _FLOAT32_SCALE:
+            return torch.from_numpy(self.as_complex64()).to(resolve_device(device))
+        scale, shift = _FLOAT32_SCALE[self._data.dtype.type]
+        planes = self.staged_planes(device).to(torch.float32)
+        if scale != 1.0:  # an integer capture: ``planes`` is a new tensor
+            planes.mul_(scale).add_(shift)
+        return planes.view(torch.complex64).reshape(-1)
 
     def as_complex64_view(self) -> np.ndarray:
         """Zero-copy complex64 view for READ-ONLY consumers (float32

@@ -28,6 +28,7 @@ from urh_tpu_torch.dsp import demod as _demod
 from urh_tpu_torch.dsp import fused_kernels as _fk
 from urh_tpu_torch.dsp.demod import DemodParams
 from urh_tpu_torch.util import placement
+from urh_tpu_torch.util.metrics import metrics
 
 
 class Signal:
@@ -404,6 +405,31 @@ class Signal:
         sig.params = DemodParams(**vars(self.params))
         sig._noise_from_auto_detect = self._noise_from_auto_detect
         return sig
+
+    def bandpass(self, f_low: float, f_high: float, filter_bw: float = None) -> "Signal":
+        """A new signal of the samples band-pass filtered between the
+        normalized frequencies ``f_low`` and ``f_high`` (in [-0.5, 0.5]):
+        URH's "apply bandpass filter" on a band selected in the spectrogram
+        (SignalFrame).  The filter is
+        :meth:`Filter.apply_bandpass_filter`'s on the signal's device, of
+        width ``filter_bw`` (default: the configured one); the new signal,
+        named "<name> filtered", keeps the demodulation parameters."""
+        from urh_tpu_torch.dsp.filters import Filter
+
+        if filter_bw is None:
+            filter_bw = Filter.read_configured_filter_bw()
+        taps = Filter.get_filter_length_from_bandwidth(filter_bw)
+        route = Filter.convolution_route(self.num_samples, taps)
+        with metrics.span("filter.bandpass", samples=self.num_samples, taps=taps, route=route):
+            # the FFT route converts the capture on the device, as it is staged there
+            data = (self.iq_array.staged_complex64(self.device) if route == "card"
+                    else self.iq_array.as_complex64())
+            filtered = Filter.apply_bandpass_filter(data, f_low, f_high, filter_bw=filter_bw,
+                                                    device=self.device)
+            # create_new keeps the demodulation parameters (SignalFrame.py:1579)
+            signal = self.create_new(new_data=filtered.astype(np.complex64, copy=False))
+            signal.name = f"{self.name} filtered"
+        return signal
 
     def crop_to_range(self, start: int, end: int):
         self.iq_array = IQData(self.iq_array[start:end], skip_conversion=True)

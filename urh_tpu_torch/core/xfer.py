@@ -33,7 +33,16 @@ def to_device(x, device=None) -> torch.Tensor:
 
 
 def to_host(x) -> np.ndarray:
-    """Tensor -> host ndarray (an ndarray passes through)."""
+    """Tensor -> host ndarray (an ndarray passes through).  From a CUDA card
+    into page-locked memory of torch's caching host allocator, which the
+    array holds until it is freed and a later copy then reuses: a copy into
+    fresh pageable memory faults on every page it writes, which costs more
+    than the copy and varies with the host's load."""
     if isinstance(x, np.ndarray):
         return x
-    return x.detach().cpu().numpy()
+    x = x.detach()
+    if x.device.type != "cuda":
+        return x.cpu().numpy()
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x)
+    return host.numpy()

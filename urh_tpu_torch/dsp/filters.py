@@ -23,7 +23,9 @@ import numpy as np
 import torch
 
 from urh_tpu_torch.core.iq import resolve_device
+from urh_tpu_torch.core.xfer import to_host
 from urh_tpu_torch.dsp import iir_kernels
+from urh_tpu_torch.util.metrics import metrics
 
 
 class FilterType(Enum):
@@ -59,8 +61,16 @@ def _overlap_save_convolve(x: torch.Tensor, h: torch.Tensor, block: int, m: int)
 
 
 def _to_device(values, device) -> torch.Tensor:
+    if isinstance(values, torch.Tensor):
+        return values.to(resolve_device(device), torch.complex64)
     return torch.from_numpy(np.ascontiguousarray(values, dtype=np.complex64)).to(
         resolve_device(device))
+
+
+def _is_complex(values) -> bool:
+    if isinstance(values, torch.Tensor):
+        return values.is_complex()
+    return np.issubdtype(np.asarray(values).dtype, np.complexfloating)
 
 
 def fir_filter(input_samples: np.ndarray, filter_taps: np.ndarray, device=None) -> np.ndarray:
@@ -158,16 +168,18 @@ class Filter:
         return N + 1 if N % 2 == 0 else N  # ensure odd length
 
     @staticmethod
-    def fft_convolve_1d(x: np.ndarray, h: np.ndarray, device=None) -> np.ndarray:
-        """Centered FFT convolution (Filter.py:69-82 semantics) on ``device``."""
+    def fft_convolve_1d(x, h: np.ndarray, device=None) -> np.ndarray:
+        """Centered FFT convolution (Filter.py:69-82 semantics) on ``device``;
+        ``x`` is a NumPy array or a tensor (on ``device`` already, say).
+        The centered part alone comes back to the host."""
         n = len(x) + len(h) - 1
         xd = _to_device(x, device)
-        out = _fft_full_convolve(xd, _to_device(h, xd.device), n).cpu().numpy()
-        if not (np.issubdtype(np.asarray(x).dtype, np.complexfloating)
-                or np.issubdtype(np.asarray(h).dtype, np.complexfloating)):
+        out = _fft_full_convolve(xd, _to_device(h, xd.device), n)
+        too_much = (n - len(x)) // 2
+        out = to_host(out[too_much : n - too_much])
+        if not (_is_complex(x) or _is_complex(h)):
             out = out.real
-        too_much = (len(out) - len(x)) // 2
-        return out[too_much : len(out) - too_much]
+        return out
 
     @staticmethod
     def apply_bandpass_filter(data, f_low, f_high, filter_bw=0.08, device=None):
@@ -177,10 +189,20 @@ class Filter:
         f_high = max(-0.5, min(f_high, 0.5))
 
         h = Filter.design_windowed_sinc_bandpass(f_low, f_high, filter_bw)
-        # the reference switches between direct and FFT convolution by a
-        # tap-count heuristic (urh_tpu's, kept)
-        return np.convolve(data, h, "same") if len(h) < 8 * math.log(math.sqrt(len(data))) \
-            else Filter.fft_convolve_1d(data, h, device)
+        route = Filter.convolution_route(len(data), len(h))
+        with metrics.span("filter.convolve", samples=len(data), taps=len(h), route=route):
+            out = np.convolve(data, h, "same") if route == "host" \
+                else Filter.fft_convolve_1d(data, h, device)
+        metrics.count({"filter.samples": len(data), f"filter.{route}": 1})
+        return out
+
+    @staticmethod
+    def convolution_route(n_samples: int, n_taps: int) -> str:
+        """Where :meth:`apply_bandpass_filter` convolves: "host" (np.convolve)
+        below the reference's tap-count heuristic (urh_tpu's, kept), else
+        "card" (:meth:`fft_convolve_1d` on the device, the CPU for a CPU
+        device)."""
+        return "host" if n_taps < 8 * math.log(math.sqrt(n_samples)) else "card"
 
     @staticmethod
     def design_windowed_sinc_lpf(fc, bw) -> np.ndarray:

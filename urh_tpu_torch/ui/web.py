@@ -303,23 +303,11 @@ class WebUI:
         """Bandpass-filter a signal into a NEW signal (the reference's
         spectrogram context-menu 'apply bandpass filter', SignalFrame;
         f_low/f_high are normalized frequencies in [-0.5, 0.5])."""
-        from urh_tpu_torch.core.signal import Signal
-        from urh_tpu_torch.dsp.filters import Filter
-
         with self._lock:
             frame = self._frame(signal_id)
-            f_low = float(body["f_low"])
-            f_high = float(body["f_high"])
-            bw = float(body.get("bw", Filter.read_configured_filter_bw()))
-            data = frame.signal.iq_array.as_complex64()
-            filtered = Filter.apply_bandpass_filter(data, f_low, f_high,
-                                                    filter_bw=bw,
-                                                    device=frame.signal.device)
-            # create_new keeps the demod parameter set (the reference's
-            # SignalFrame.py:1579 filtered-signal semantics)
-            signal = frame.signal.create_new(
-                new_data=filtered.astype(np.complex64))
-            signal.name = f"{frame.name} filtered"
+            bw = body.get("bw")
+            signal = frame.signal.bandpass(float(body["f_low"]), float(body["f_high"]),
+                                           None if bw is None else float(bw))
             new_frame = self.main.add_signal(signal)
             return self._signal_summary(
                 self.main.signal_frames.index(new_frame), new_frame)

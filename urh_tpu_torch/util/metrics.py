@@ -33,7 +33,14 @@ the messages it is given), ``gate.card`` (``estimate()``: a power gate run on
 a capture staged on the card), ``gate.settled_rows`` and ``gate.crossings``
 (``ai/power_gate.py``: chunk means the host recomputed, crossing positions
 back from the device); ``demod.costas`` (``dsp/costas.py``, one a pass of the Costas loop,
-B5's launch on the card); ``sniffer.drain``, ``sniffer.ring_wait``,
+B5's launch on the card); ``filter.bandpass`` (``Signal.bandpass``: the
+int8 or float32 capture to complex64, the filter, the new signal; args:
+samples, taps, route) and inside it ``filter.convolve``
+(``Filter.apply_bandpass_filter``'s convolution, on the host or the device),
+with the counters ``filter.samples`` (the samples each such filter takes),
+``filter.card`` (filters that took ``fft_convolve_1d`` on the device) and
+``filter.host`` (filters that took ``np.convolve``), one update a filter;
+``sniffer.drain``, ``sniffer.ring_wait``,
 ``sniffer.emit_wait`` and ``sniffer.demodulate`` (``protocol/sniffer.py``);
 the counters ``costas.samples`` (the samples of each such pass),
 ``ring.commits``, ``ring.samples`` and ``ring.wraps`` (the Network SDR's
