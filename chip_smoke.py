@@ -1415,7 +1415,8 @@ def estimate_phase(device, n: int = N_FULL, psk_n: int = B5_TIMED_N,
     """estimate() and Signal.auto_detect() on every capture, each run with
     the launch counts set to 0 just before and read just after: the
     capture's modulation and bit length, B7 launched once a width bucket,
-    the Costas loop once for PSK, the power gate run once (``gate.card``);
+    the Costas loop once for PSK, the power gate run once (``gate.card``),
+    an int8 capture's classification screening fewer samples than it holds;
     then demodulate() with the detected parameters, through the capture's
     kernel: every FSK message bit-exact, the exact messages counted for the
     others.  -> B7 launches and walls."""
@@ -1450,6 +1451,9 @@ def estimate_phase(device, n: int = N_FULL, psk_n: int = B5_TIMED_N,
                 raise AssertionError(f"{what} {label}: launches {c}, {buckets} width buckets")
             if c.get("gate.card") != 1:
                 raise AssertionError(f"{what} {label}: launches {c}, not one power gate")
+            if iq.dtype == np.int8 and not 0 < c.get("classify.screened_samples", 0) < len(iq):
+                raise AssertionError(f"{what} {label}: classification screened "
+                                     f"{c.get('classify.screened_samples')} of {len(iq)} samples")
         launches += counts["median_filter_f32"] + auto_counts["median_filter_f32"]
         reset_launches()
         messages = ut.demodulate(sig)

@@ -397,6 +397,103 @@ def test_classify_messages_equals_urh_tpu():
         jax_estimate.detect_modulation(iq[:6400, 0] + 1j * iq[:6400, 1]))
 
 
+# each ingest dtype: (quantize a float32 capture in [-1, 1], the raw sample that
+# converts to 0 + 0j); float32's is -0.0, which the zero test takes as 0 too
+DTYPE_CASES = {
+    "int8": (lambda x: np.clip(np.round(x * 127), -128, 127).astype(np.int8), 0),
+    "uint8": (lambda x: np.clip(np.round(x * 127) + 128, 0, 255).astype(np.uint8), 128),
+    "int16": (lambda x: np.clip(np.round(x * 32767), -32768, 32767).astype(np.int16), 0),
+    "uint16": (lambda x: np.clip(np.round(x * 32767) + 32768, 0, 65535).astype(np.uint16),
+               32768),
+    "float32": (lambda x: x.astype(np.float32), -0.0),
+}
+
+# segment -> offsets of its zero samples, None: from its end; the messages are
+# 1600 (width 1024), 3200 (2048) and 4800 (4096) samples long
+ZERO_PLANTS = [
+    (),  # zero-free: gathered where staged
+    (10,),  # one zero inside the power-of-two width: uploaded
+    (100, 101, 2000),  # three inside
+    (-1, -2, -3),  # three after the width: gathered where staged
+    (5, 6, 7, 8),  # more than _OOK_MAX_ZEROS: OOK without statistics
+    (-10,),  # one after the width
+]
+
+
+@pytest.mark.parametrize("staged", [False, True], ids=["unstaged", "staged"])
+@pytest.mark.parametrize("dtype", sorted(DTYPE_CASES))
+def test_classification_screens_every_dtype_as_urh_tpu(dtype, staged):
+    """classify_messages of a capture in each ingest dtype equals urh_tpu's
+    (staged on both sides, or on neither), with segments holding no zero,
+    1-3 zeros inside and after their power-of-two width, and more than
+    _OOK_MAX_ZEROS; bucket_segments puts each segment in the bucket it takes
+    when the whole capture is converted to complex64 first."""
+    quantize, zero = DTYPE_CASES[dtype]
+    iq = np.concatenate([_capture(kind, 30 + i, n_msgs=2, n_bits=16 * (1 + i % 3))
+                         for i, kind in enumerate(["FSK", "ASK", "PSK"])])
+    mags = IQData(iq).magnitudes
+    segments = segmentation.segment_messages_from_magnitudes(
+        mags, segmentation.detect_noise_level(mags))
+    assert len(segments) == 6
+    x = quantize(iq)
+    for (start, end), plants in zip(segments, ZERO_PLANTS):
+        for offset in plants:
+            x[start + offset if offset >= 0 else end + offset] = zero
+
+    data = IQData(x)
+    got = est.classify_messages(data, segments, device="cpu",
+                                staged=data.staged_planes("cpu") if staged else None)
+    jax_data = JaxIQData(x)
+    want = jax_estimate.classify_messages(
+        jax_data, segments, staged=jax_data.staged_planes() if staged else None)
+    assert got == want
+    assert got[4] == "OOK" and None not in got
+
+    whole = IQData(data.as_complex64().view(np.float32).reshape(-1, 2), skip_conversion=True)
+    decisions, gathered, uploaded = est.bucket_segments(data, segments, staged=staged)
+    want_decisions, want_gathered, want_uploaded = est.bucket_segments(whole, segments,
+                                                                       staged=staged)
+    assert decisions == want_decisions and gathered == want_gathered
+    assert sorted(uploaded) == sorted(want_uploaded)
+    for width, members in uploaded.items():
+        assert [i for i, _ in members] == [i for i, _ in want_uploaded[width]]
+        for (_, row), (_, want_row) in zip(members, want_uploaded[width]):
+            np.testing.assert_array_equal(row.view(np.uint64), want_row.view(np.uint64))
+    routed = {i for members in gathered.values() for i, _ in members}
+    assert routed == ({0, 3, 5} if staged else set())
+
+
+def test_estimate_of_an_int8_capture_converts_no_whole_capture(monkeypatch):
+    """estimate() of an int8 capture never converts the whole capture to
+    complex64 on the host, and gives urh_tpu's estimate."""
+    iq = _int8(_capture("OOK", 3))
+
+    def whole(self):
+        raise AssertionError("the whole capture converted to complex64")
+
+    monkeypatch.setattr(IQData, "as_complex64", whole)
+    monkeypatch.setattr(IQData, "as_complex64_view", whole)
+    _assert_same_estimate(est.estimate(iq, device="cpu"), urh_tpu.estimate(iq))
+
+
+@pytest.mark.parametrize("cap", [2, est._MAX_CLASSIFIED_MESSAGES])
+def test_screened_samples_count_the_classified_segments(cap, monkeypatch):
+    """classify.screened_samples: the samples of the segments classified
+    (the first _MAX_CLASSIFIED_MESSAGES), one update an estimate."""
+    iq = _int8(_capture("ASK", 2))
+    mags = IQData(iq).magnitudes
+    segments = segmentation.segment_messages_from_magnitudes(
+        mags, segmentation.detect_noise_level(mags))
+    assert len(segments) == 5
+    monkeypatch.setattr(est, "_MAX_CLASSIFIED_MESSAGES", cap)
+    metrics = urh_tpu_torch.util.metrics.metrics
+    metrics.clear()
+    assert est.estimate(iq, device="cpu")["modulation_type"] == "ASK"
+    assert metrics.counters()["classify.screened_samples"] == sum(
+        end - start for start, end in segments[:cap]) < len(iq)
+    assert metrics.report()["estimate.classify"]["calls"] == 1
+
+
 @pytest.mark.parametrize("detect_noise", [False, True])
 def test_auto_detect_sets_the_same_parameters(detect_noise):
     iq = _capture("FSK", 21)

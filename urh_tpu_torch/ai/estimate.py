@@ -38,7 +38,8 @@ the OOK merge), ``estimate.rect`` and ``estimate.scan``, which holds
 the peaks), ``estimate.scan.plateaus`` (runs, tolerance, merge) and
 ``estimate.scan.vote`` (rounding, divisor histograms, bit lengths, the
 vote).  The counter ``gate.card`` counts the gates run on a capture staged
-on the card, ``scan.messages`` the messages scanned and
+on the card, ``classify.screened_samples`` the samples of the segments
+classification read on the host, ``scan.messages`` the messages scanned and
 ``scan.histogram_calls`` the device calls that counted their centers' histograms.
 """
 
@@ -123,14 +124,16 @@ def bucket_segments(iq_data: IQData, segments: list, wavelet_scale=_WAVELET_SCAL
     floor of their zero-free length, and grouped by it.  With ``staged``,
     a segment whose first ``width`` samples hold no zero goes to
     ``staged_buckets`` as (index, start), to be gathered on the device;
-    the others go to ``buckets`` as (index, samples)."""
-    data = iq_data.as_complex64_view()  # read-only consumer: zero-copy
+    the others go to ``buckets`` as (index, samples).  Only the segments'
+    samples are converted to complex64 (a float32 capture is read in place);
+    their count goes to the counter ``classify.screened_samples``."""
     decisions = [None] * len(segments)
     buckets: dict = {}
     staged_buckets: dict = {}
 
+    metrics.count("classify.screened_samples", int(sum(end - start for start, end in segments)))
     for i, (start, end) in enumerate(segments):
-        samples = data[start:end]
+        samples = iq_data.complex64_range(start, end)
         dead = np.flatnonzero(np.abs(samples) == 0)
         n_alive = len(samples) - len(dead)
         if n_alive == 0:

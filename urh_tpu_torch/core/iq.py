@@ -245,13 +245,19 @@ class IQData:
             planes.mul_(scale).add_(shift)
         return planes.view(torch.complex64).reshape(-1)
 
+    def complex64_range(self, start: int, end: int) -> np.ndarray:
+        """:meth:`as_complex64`'s values of samples ``[start, end)``,
+        converted from those samples alone: the conversion is elementwise, so
+        each equals the whole capture's bit for bit.  A C-contiguous float32
+        capture gives a view of its own buffer (for read-only consumers)."""
+        planes = self._convert_planes(self._data[start:end], np.float32)
+        return np.ascontiguousarray(planes).reshape(-1).view(np.complex64)
+
     def as_complex64_view(self) -> np.ndarray:
         """Zero-copy complex64 view for READ-ONLY consumers (float32
         buffers alias self.data; other dtypes fall back to a converted
         copy)."""
-        if self._data.dtype == np.float32 and self._data.flags["C_CONTIGUOUS"]:
-            return self._data.reshape(-1).view(np.complex64)
-        return self.as_complex64()
+        return self.complex64_range(0, len(self))
 
     def as_raw_f32(self) -> np.ndarray:
         """Raw-unit float32 view (no normalization) for device transfer."""
@@ -282,7 +288,12 @@ class IQData:
 
     # -- dtype conversion matrix (IQArray.py:127-204) --------------------
     def convert_to(self, target_dtype) -> np.ndarray:
-        src = self._data
+        return self._convert_planes(self._data, target_dtype)
+
+    @staticmethod
+    def _convert_planes(src: np.ndarray, target_dtype) -> np.ndarray:
+        """:meth:`convert_to` of any (n, 2) planes in an ingest dtype: the
+        planes themselves where the dtype is the target's."""
         sdt, tdt = src.dtype, np.dtype(target_dtype)
         if tdt == sdt:
             return src
